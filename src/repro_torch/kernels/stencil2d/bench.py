@@ -1,0 +1,139 @@
+"""Timing the stencil kernel on the card.
+
+The helpers time by CUDA events (median over runs after warm-up, the L2
+flushed before each run) and count the bytes each call must move: each
+input read once, each output written once under the reference contract.
+``chip_smoke.py`` uses them for its main-path numbers.
+"""
+from __future__ import annotations
+
+import math
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+from . import kernel as k1
+
+#: (program, sizes of its loop dims outermost first): the largest sizes
+#: of the repository's normalization and hydro benchmarks, and cosmo at
+#: a size past the H100's 50 MB L2.
+MAIN_PATH = (("normalization", {"j": 4096, "i": 2048}),
+             ("hydro1d", {"j": 2048, "i": 4096}),
+             ("cosmo", {"k": 64, "j": 512, "i": 512}))
+#: The programs with plane windows, which run unchunked: heat3d at the
+#: size of the repository's lifted benchmark (benchmarks/lifted.py) and
+#: at cosmo's, and advect4d_halo (no benchmark of its own) at the same
+#: 64 MiB of input split over four ``l`` tiles.
+PLANE_WINDOW_PATH = (("heat3d", {"k": 6, "j": 32, "i": 256}),
+                     ("heat3d", {"k": 64, "j": 512, "i": 512}),
+                     ("advect4d_halo", {"l": 4, "k": 16, "j": 512,
+                                        "i": 512}))
+RUNS = 20
+#: Device-memory rates (bytes/s) by card name, from NVIDIA's data sheets.
+HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
+            ("H100", 3.35e12))
+
+
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def hbm_rate(name: str) -> float:
+    for key, rate in HBM_RATE:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no memory rate known for {name!r}")
+
+
+def make_inputs(name: str, kplan, dims: dict, seed: int, device) -> dict:
+    """One seeded float32 array per axiom of ``kplan``, shaped by its
+    extents at ``dims`` (loop dim -> size); hydro1d's density is kept
+    positive as in the repository's hydro benchmark."""
+    rng = np.random.default_rng(seed)
+    sizes = {sym: dims[d] for d, sym in kplan.dim_sizes}
+    out = {}
+    for ax in kplan.axioms:
+        ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
+        shape = [sizes[ext[d][0]] + ext[d][2] - ext[d][1] for d in ax.dims]
+        a = rng.standard_normal(shape, dtype=np.float32)
+        if name == "hydro1d" and ax.array == "rho":
+            a = a * a + 1.0
+        out[ax.array] = torch.from_numpy(a).to(device)
+    return out
+
+
+def l2_flusher(device):
+    """A callable overwriting 128 MiB, past the 50 MB L2."""
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=device)
+    return buf.zero_
+
+
+def event_ms(fn, flush, runs: int = RUNS) -> float:
+    """Median device time of ``fn`` by CUDA events over ``runs`` runs
+    after warm-up, with ``flush`` run before each."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def capture(fn):
+    """Run ``fn()`` once, recording every kernel launch it makes as
+    ``(lib, layout, launch, args)``; returns ``(fn(), records)``."""
+    records = []
+    real = k1.run_kernel
+
+    def recording(lib, lay, run, args, **kw):
+        records.append((lib, lay, run, args))
+        return real(lib, lay, run, args, **kw)
+
+    k1.run_kernel = recording
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        k1.run_kernel = real
+    return out, records
+
+
+def call_bytes(lay, run, args) -> int:
+    """Bytes one call must move (float32): each input read once, each
+    output written once in the reference contract's shape -- row outputs
+    ``(*grid, steps_j, Ni)``, accumulators ``(*grid[:n_kept], w)``, not
+    the kernel's per-chunk partial rows."""
+    floats = sum(t.numel() for t in args)
+    for o in lay.call.outputs:
+        if o.acc is None:
+            floats += math.prod(run.gsz) * run.steps_j * run.ni
+        else:
+            a = next(a for a in lay.call.accs if a.name == o.acc)
+            floats += math.prod(run.gsz[:a.n_kept]) * (run.ni + a.w_off)
+    return 4 * floats
+
+
+def kernel_ms(record, flush) -> float:
+    """Device time of one recorded call's kernel alone, relaunched with
+    the same inputs at its recorded launch shape (these launches are not
+    counted in ``kernel.launches``)."""
+    lib, lay, run, args = record
+    outs, scratch = k1.alloc_outputs(lay, run, args[0].device)
+    tensors = list(args) + outs + [scratch]
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    return event_ms(lambda: k1.launch(lib, run, tensors, threads=run.threads,
+                                      stream=stream), flush)
+
