@@ -1,0 +1,9 @@
+"""mistral-large-123b — dense LM [hf:mistralai/Mistral-Large-Instruct-2407; unverified]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mistral-large-123b", family="dense",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab=32768, rope_theta=1e6,
+    source="hf:mistralai/Mistral-Large-Instruct-2407; unverified",
+)

@@ -1,0 +1,123 @@
+"""Building the hand-written CUDA kernels: ``nvcc`` into shared libraries
+with a plain C interface, loaded with ``ctypes``.
+
+Every kernel of the port is built the same way, at first use, never at
+import: one ``nvcc`` per source for ``sm_90a``, all the sources of one
+:func:`build` call started together, each library cached by the sha256
+of (source, the headers it includes, ``nvcc --version``, the flags) in
+``build/repro_torch/`` at the repository root.  A failed build raises
+with the compiler's log.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Callable, Sequence
+
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
+    / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+_NVCC_VERSION: list[str] = []
+
+
+@dataclasses.dataclass(frozen=True)
+class Job:
+    """One library to build: ``source`` (the text of a ``.cu``), the
+    ``headers`` it includes (their text enters the cache key), the
+    directory to search for them, and ``bind``, which declares the
+    library's C functions (``argtypes``/``restype``) once it is loaded."""
+    source: str
+    headers: tuple[pathlib.Path, ...]
+    include: pathlib.Path
+    bind: Callable[[ctypes.CDLL], None]
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to build with (``$CUDA_HOME/bin/nvcc``, else the
+    one on ``PATH``, else ``/usr/local/cuda/bin/nvcc``)."""
+    home = os.environ.get("CUDA_HOME")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "nvcc at first use")
+
+
+def nvcc_version() -> str:
+    if not _NVCC_VERSION:
+        _NVCC_VERSION.append(subprocess.run(
+            [nvcc_path(), "--version"], check=True, capture_output=True,
+            text=True).stdout)
+    return _NVCC_VERSION[0]
+
+
+def digest(job: Job) -> str:
+    h = hashlib.sha256()
+    for part in (job.source, *(p.read_text() for p in job.headers),
+                 nvcc_version(), " ".join(NVCC_FLAGS)):
+        h.update(part.encode())
+        h.update(b"\0")
+    return h.hexdigest()[:32]
+
+
+def _tmp_so(key: str) -> pathlib.Path:
+    return BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
+
+
+def _start_build(job: Job, key: str):
+    """Start ``nvcc`` on ``job`` unless its library is built already;
+    returns the compiler process, or None."""
+    if key in _LIBS or (BUILD_DIR / f"{key}.so").exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = BUILD_DIR / f"{key}.cu"
+    cu.write_text(job.source)
+    return subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, f"-I{job.include}", "-o",
+         str(_tmp_so(key)), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_build(job: Job, key: str, proc) -> ctypes.CDLL:
+    """Wait for ``proc`` (if any) and load and bind the library."""
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building "
+                               f"{BUILD_DIR / (key + '.cu')}:\n{log}")
+        os.replace(_tmp_so(key), BUILD_DIR / f"{key}.so")
+    lib = _LIBS.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(BUILD_DIR / f"{key}.so"))
+        job.bind(lib)
+        _LIBS[key] = lib
+    return lib
+
+
+def build(jobs: Sequence[Job]) -> tuple[list[ctypes.CDLL], int]:
+    """Build (or load from the cache) the library of every job, one
+    ``nvcc`` per distinct source, all started together; returns the
+    libraries in the order of ``jobs`` and how many were compiled."""
+    with _LOCK:
+        keys = [digest(j) for j in jobs]
+        procs = {}
+        for job, key in zip(jobs, keys):
+            if key not in procs:
+                procs[key] = _start_build(job, key)
+        libs = {}
+        for job, key in zip(jobs, keys):
+            if key not in libs:
+                libs[key] = _finish_build(job, key, procs[key])
+    return [libs[k] for k in keys], sum(p is not None for p in procs.values())

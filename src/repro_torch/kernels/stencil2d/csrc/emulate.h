@@ -1,6 +1,7 @@
-// Host emulation of the CUDA constructs stencil2d.cuh and the emitted
-// kernels use, so the kernels' index, slot, chunk and ownership logic
-// can be compiled with a host C++ compiler (g++ -std=c++20
+// Host emulation of the CUDA constructs the port's kernels use (the
+// stencil kernels of stencil2d.cuh, flash attention and flash decode),
+// so the kernels' index, slot, chunk, tile and ownership logic can be
+// compiled with a host C++ compiler (g++ -std=c++20
 // -DHFAV_EMULATE) and tested on a machine without a GPU.  Blocks run one
 // after another; the threads of a block are host threads that meet at
 // a std::barrier in __syncthreads(), so a missing barrier shows up as a
@@ -42,6 +43,28 @@ inline float __int_as_float(unsigned v) {
   float f;
   std::memcpy(&f, &v, sizeof f);
   return f;
+}
+
+// bfloat16 as the card stores it (the high half of a float), with the
+// conversions of cuda_bf16.h; float -> bf16 rounds to nearest even.
+struct __nv_bfloat16 {
+  unsigned short x;
+};
+
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const unsigned u = static_cast<unsigned>(h.x) << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u)  // NaN stays a quiet NaN
+    return {static_cast<unsigned short>((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {static_cast<unsigned short>(u >> 16)};
 }
 
 inline const char* cudaGetErrorString(int) { return "emulated launch"; }

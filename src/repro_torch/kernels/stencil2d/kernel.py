@@ -24,19 +24,15 @@ windows live in shared memory when they fit, so a row read at several
 offsets costs one trip to device memory; row chunks give the 2-D
 programs enough blocks to fill the card.
 
-Builds are cached by sha256 of (source, header, ``nvcc --version``,
-flags) in ``build/repro_torch/`` at the repository root.  The kernel
+The build (``nvcc`` at first use, cached by content in
+``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
 refuses CPU tensors and any dtype but float32; a failed build or launch
 raises.  :data:`launches` counts the launches made.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 import threading
 
 import torch
@@ -46,91 +42,31 @@ from ...core.interpreters import (STENCIL_CAPABILITIES, InterpreterSpec,
                                   require_hazard_free, require_linked_fns)
 from ...core.plan import CallPlan, fn_key
 from ...core.runtime import lane_reduce
+from .. import build
 from .emit import H100_SMS, CallLayout, emit_source
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "stencil2d.cuh"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" \
-    / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: Kernel launches made by :func:`run_kernel`.
 launches = 0
 
-_LIBS: dict[str, ctypes.CDLL] = {}
 _CALLS: dict = {}
 _LOCK = threading.Lock()
-_NVCC_VERSION: list[str] = []
 
 
-def nvcc_path() -> str:
-    """The ``nvcc`` to build with (``$CUDA_HOME/bin/nvcc``, else the
-    one on ``PATH``, else ``/usr/local/cuda/bin/nvcc``)."""
-    home = os.environ.get("CUDA_HOME")
-    cands = [os.path.join(home, "bin", "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the CUDA stencil kernel is built "
-                       "with nvcc at first use")
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.hfav_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_longlong, ctypes.c_void_p]
+    lib.hfav_launch.restype = ctypes.c_int
+    lib.hfav_error_string.argtypes = [ctypes.c_int]
+    lib.hfav_error_string.restype = ctypes.c_char_p
 
 
-def nvcc_version() -> str:
-    if not _NVCC_VERSION:
-        _NVCC_VERSION.append(subprocess.run(
-            [nvcc_path(), "--version"], check=True, capture_output=True,
-            text=True).stdout)
-    return _NVCC_VERSION[0]
-
-
-def _digest(source: str) -> str:
-    h = hashlib.sha256()
-    for part in (source, HEADER.read_text(), nvcc_version(),
-                 " ".join(NVCC_FLAGS)):
-        h.update(part.encode())
-        h.update(b"\0")
-    return h.hexdigest()[:32]
-
-
-def _tmp_so(digest: str) -> pathlib.Path:
-    return BUILD_DIR / f"{digest}.{os.getpid()}.tmp.so"
-
-
-def _start_build(source: str, digest: str):
-    """Start ``nvcc`` on ``source`` unless its library is built already;
-    returns the compiler process, or None."""
-    if digest in _LIBS or (BUILD_DIR / f"{digest}.so").exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = BUILD_DIR / f"{digest}.cu"
-    cu.write_text(source)
-    return subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(_tmp_so(digest)),
-         str(cu)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def _finish_build(digest: str, proc) -> ctypes.CDLL:
-    """Wait for ``proc`` (if any) and load the library of ``digest``."""
-    if proc is not None:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building "
-                               f"{BUILD_DIR / (digest + '.cu')}:\n{log}")
-        os.replace(_tmp_so(digest), BUILD_DIR / f"{digest}.so")
-    lib = _LIBS.get(digest)
-    if lib is None:
-        lib = ctypes.CDLL(str(BUILD_DIR / f"{digest}.so"))
-        lib.hfav_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_longlong, ctypes.c_int,
-                                    ctypes.c_longlong, ctypes.c_void_p]
-        lib.hfav_launch.restype = ctypes.c_int
-        lib.hfav_error_string.argtypes = [ctypes.c_int]
-        lib.hfav_error_string.restype = ctypes.c_char_p
-        _LIBS[digest] = lib
-    return lib
+def job(call: CallPlan) -> build.Job:
+    """The build job of ``call``'s emitted kernel."""
+    return build.Job(emit_source(call), (HEADER,), CSRC, _bind)
 
 
 def _call_key(call: CallPlan):
@@ -152,26 +88,8 @@ def build_library(call: CallPlan) -> ctypes.CDLL:
     entry = _CALLS[_call_key(call)]
     if entry[1] is None:
         with _LOCK:
-            src = emit_source(call)
-            digest = _digest(src)
-            entry[1] = _finish_build(digest, _start_build(src, digest))
+            entry[1] = build.build([job(call)])[0][0]
     return entry[1]
-
-
-def build_all(calls) -> int:
-    """Build the kernels of ``calls`` (CallPlans with a grid) with one
-    ``nvcc`` per distinct source, all started together; returns how
-    many were compiled (the rest were cached)."""
-    with _LOCK:
-        started = {}
-        for call in calls:
-            src = emit_source(call)
-            digest = _digest(src)
-            if digest not in started:
-                started[digest] = _start_build(src, digest)
-        for digest, proc in started.items():
-            _finish_build(digest, proc)
-    return sum(p is not None for p in started.values())
 
 
 def _check_tensor(t, what: str, shape, device) -> None:

@@ -1,0 +1,105 @@
+"""GQA attention layer with KV cache, sliding window, qk-norm and M-RoPE
+(the port of ``repro.models.attention``; cross attention waits for the
+encoder-decoder family).  Cache layout: (B, S_max, KVH, D) per layer.
+
+``cfg.attn_impl`` keeps the reference's names.  ``"pallas"`` selects the
+hand-written CUDA kernels in both places: flash attention (K2) at
+train/prefill and split-KV flash decode (K3) at decode.  The reference's
+``decode_self_attention`` sends ``"pallas"`` to its chunked scan instead;
+both compute the same function.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..kernels.flash_attention.ops import attention
+from ..kernels.flash_decode.ops import decode_attention
+from .common import dense_init, rmsnorm, rmsnorm_init
+from .rope import apply_rope
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
+    d, hd, H, KVH = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": dense_init(gen, d, H * hd, device=device),
+        "wk": dense_init(gen, d, KVH * hd, device=device),
+        "wv": dense_init(gen, d, KVH * hd, device=device),
+        "wo": dense_init(gen, H * hd, d, scale=1.0 / math.sqrt(H * hd),
+                         device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, device=device)
+        p["k_norm"] = rmsnorm_init(hd, device=device)
+    return p
+
+
+def _project_q(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_kv(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    B, S, _ = x.shape
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                   positions: torch.Tensor, causal: bool = True):
+    """Train/prefill path; returns ``(out, (k, v))`` so callers can fill
+    caches."""
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, x, cfg)
+    q = apply_rope(q, positions, theta=cfg.rope_theta,
+                   mrope_sections=cfg.mrope_sections)
+    k = apply_rope(k, positions, theta=cfg.rope_theta,
+                   mrope_sections=cfg.mrope_sections)
+    o = attention(q, k, v, causal=causal, window=cfg.window, q_offset=0,
+                  impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    B, S = x.shape[:2]
+    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    return out, (k, v)
+
+
+def decode_self_attention(p: dict, x_t: torch.Tensor, cfg: ArchConfig, *,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """One-token step.  ``lengths`` counts tokens INCLUDING the new one.
+
+    The new (k, v) is written at index ``lengths - 1`` of ``cache_k`` and
+    ``cache_v`` IN PLACE (the reference returns updated copies), then the
+    token attends over the caches.  The caches are this layer's views of
+    the model's cache tensors, so a cache from before a step is not kept.
+    """
+    B = x_t.shape[0]
+    x = x_t[:, None]  # (B, 1, d)
+    q = _project_q(p, x, cfg)
+    k, v = _project_kv(p, x, cfg)
+    pos = (lengths - 1)[:, None]  # (B, 1)
+    rp = pos if cfg.mrope_sections is None else pos.expand(3, B, 1)
+    q = apply_rope(q, rp, theta=cfg.rope_theta,
+                   mrope_sections=cfg.mrope_sections)
+    k = apply_rope(k, rp, theta=cfg.rope_theta,
+                   mrope_sections=cfg.mrope_sections)
+    bidx = torch.arange(B, device=x.device)
+    last = (lengths - 1).long()
+    cache_k[bidx, last] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, last] = v[:, 0].to(cache_v.dtype)
+    if cfg.attn_impl == "pallas":
+        # K3 reads the caches in their own dtype and rounds to x's
+        o = decode_attention(q[:, 0], cache_k, cache_v, lengths,
+                             window=cfg.window, impl="pallas")
+    else:
+        o = decode_attention(q[:, 0], cache_k.to(x.dtype),
+                             cache_v.to(x.dtype), lengths, window=cfg.window,
+                             impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    return o.reshape(B, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)

@@ -1,0 +1,44 @@
+"""Parameters of the reference package into the port.
+
+:func:`params_from_jax` takes the JAX package's parameter pytree as numpy
+arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
+parameter dictionary on ``device``: the stacked leading layer axis of
+``blocks`` becomes one dictionary per layer, and every weight keeps its
+``(d_in, d_out)`` layout (the port computes ``x @ w`` as the reference
+does), so nothing is transposed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.interpreters import resolve_device
+from .lm import require_dense
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _split_layers(tree, n: int, device) -> list:
+    """One tree per index of the leading axis of every leaf."""
+    def take(t, i):
+        if isinstance(t, dict):
+            return {k: take(v, i) for k, v in t.items()}
+        if t.shape[0] != n:
+            raise ValueError(f"stacked leaf of shape {t.shape} has no "
+                             f"leading layer axis of {n}")
+        return _tensor(t[i], device)
+    return [take(tree, i) for i in range(n)]
+
+
+def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> dict:
+    """The port's parameters from the reference's pytree of numpy
+    arrays, on ``device`` (the current CUDA device unless
+    ``device="cpu"`` is given)."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = _split_layers(tree["blocks"], cfg.n_layers, dev)
+    return out

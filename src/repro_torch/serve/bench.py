@@ -1,0 +1,111 @@
+"""Measuring the LM serving path and its attention kernels on the card.
+
+The work and the bytes each attention call must do, counted from its
+inputs (each input read once, each output written once; for decode only
+the valid part of the caches), the card's peak rates by name, and the
+device's share of a step by ``torch.profiler``.  ``chip_smoke.py``
+uses them; timing itself uses the CUDA-event helpers of
+:mod:`repro_torch.kernels.stencil2d.bench`.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+#: Dense bf16 tensor-core peaks (FLOP/s) by card name, from NVIDIA's
+#: data sheets (the H100 SXM figure assumes its 700 W limit).
+BF16_PEAK = (("H200", 989e12), ("H100 NVL", 835e12), ("H100 PCIe", 756e12),
+             ("H100", 989e12))
+
+
+def bf16_peak(name: str) -> float:
+    """The card's dense bf16 tensor-core rate."""
+    for key, rate in BF16_PEAK:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no peak rate known for {name!r}")
+
+
+def attention_pairs(Sq: int, Skv: int, *, causal: bool, window, q_offset: int,
+                    device) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return int(mask.sum())
+
+
+def attention_work(q, k, v, *, causal: bool, window, q_offset: int):
+    """(flops, bytes) of one flash attention call: 4 D flops per
+    unmasked pair and head (Q K^T and P V), q, k, v read and o
+    written once."""
+    B, Sq, H, D = q.shape
+    pairs = attention_pairs(Sq, k.shape[1], causal=causal, window=window,
+                            q_offset=q_offset, device=q.device)
+    flops = 4 * D * pairs * B * H
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    return flops, nbytes
+
+
+def decode_work(q, k_cache, v_cache, lengths, *, window):
+    """(flops, bytes) of one flash decode call: the valid cache
+    positions of each sequence (its length, less those outside the
+    window) read once from K and V, q and lengths read and o written."""
+    B, H, D = q.shape
+    KVH = k_cache.shape[2]
+    valid = lengths.long()
+    if window is not None:
+        valid = valid.clamp_max(window)
+    n = int(valid.sum())
+    flops = 4 * D * n * H
+    row = KVH * D * k_cache.element_size()
+    nbytes = (2 * n * row + 2 * q.numel() * q.element_size()
+              + lengths.numel() * lengths.element_size())
+    return flops, nbytes
+
+
+def bound_ms(flops: float, nbytes: float, flop_rate: float,
+             byte_rate: float) -> tuple[float, str]:
+    """The least time for the work, and which of the two bounds it."""
+    t_ops, t_bytes = flops / flop_rate, nbytes / byte_rate
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def device_share(fn, runs: int = 3):
+    """Run ``fn`` ``runs`` times under ``torch.profiler`` (after one
+    warm-up run); returns (wall ms per run, device kernel ms per run, the
+    six kernels with the most device time as (name, ms per run)).  The
+    profiler adds host time to every operator, so the device's busy share
+    (device ms / wall ms) it gives is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    # the kernels themselves (operator rows repeat their kernels' time)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / runs
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    return wall_ms, dev_ms, [(e.key[:60], e.self_device_time_total / 1e3
+                              / runs) for e in top]

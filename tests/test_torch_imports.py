@@ -23,7 +23,12 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.stencil2d.kernel" in mods
+    for sub in ("kernels.stencil2d.kernel", "kernels.build",
+                "kernels.flash_attention.kernel",
+                "kernels.flash_decode.kernel", "configs.registry",
+                "models.lm", "models.convert", "serve.engine",
+                "serve.bench"):
+        assert f"repro_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
