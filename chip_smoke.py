@@ -41,7 +41,20 @@ Phases, each of which raises on failure:
    K2 and K3 alone at the prefill shape and at a full 4096-position
    cache, beside their plain versions, their bounds and one
    ``scaled_dot_product_attention`` call as a yardstick;
-7. the ``kernels`` line: for each kernel and main path, its launches in
+7. SSD conformance: the SSD chunked scan (K4) against its plain version
+   ``ssd_scan`` on the card, x in float32 and bf16, (N, P) = (128, 64)
+   and (64, 64), chunks of 256 and 64, sequences that are a multiple of
+   the chunk and that are not, B = 1 and 4, and decays that underflow;
+8. the SSM main paths at full width in bf16 with ``attn_impl="pallas"``:
+   mamba2-130m at full depth (24 layers; prefill of 4 x 2048 launches
+   K4 24 times) and zamba2-2.7b cut to 12 layers (two shared-attention
+   groups; prefill launches K4 12 times and K2 twice, each decode step
+   K3 twice).  Every kernel call of the driven runs is held against its
+   plain version on its own inputs; the logits against the plain path
+   (``"chunked"``), float32 gated and bf16 printed; greedy decode as for
+   qwen3-0.6b; then timed, profiled, and K4 (and zamba2's K2 and K3)
+   alone at the path's shapes;
+9. the ``kernels`` line: for each kernel and main path, its launches in
    one driven run (counts set to zero just before it), its error
    against the plain version, its times and its bound.
 
@@ -49,6 +62,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import pathlib
@@ -67,6 +81,8 @@ K2_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 K2_REPLACES = "src/repro/kernels/flash_attention/kernel.py:83"
 K3_SOURCE = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 K3_REPLACES = "src/repro/kernels/flash_decode/kernel.py:74"
+K4_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+K4_REPLACES = "src/repro/kernels/ssd/kernel.py:61"
 # K2 and K3 against their plain versions: elementwise, and relative L2
 # over the whole output.  Elementwise, float32: the reference's kernel
 # tests; bf16: the same float32 arithmetic and one rounding of the output
@@ -86,6 +102,38 @@ ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4, rel_l2=1e-5),
 # layers to 1.7e-2, PERF.md; that distance is printed, not gated.)
 LM_TOL = {"bfloat16": dict(rel_l2=5e-2, max_abs=0.25),
           "float32": dict(rel_l2=1e-3, max_abs=1e-2)}
+# K4 against its plain version: float32 elementwise as the on-card K4
+# test (tests/test_torch_ssd_kernel.py: the same float32 arithmetic in
+# another order, the prefix sum of dt in token order where ssd_scan
+# multiplies by a triangle of ones, and an error in that sum multiplied
+# by |A| in an exponent); bf16 as ATTN_TOL (one rounding of y in each).
+# A dropped 64 x 64 tile of a 256-token chunk moves y by O(1).
+SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, rel_l2=1e-4),
+           torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2, rel_l2=1e-3)}
+# K4 calls on the SSM models' own inputs.  There A reaches -16 and the
+# prefix sums of dt reach ~200, so float32's own error of the function
+# reaches 1.4e-3 x RMS(y) (ssd_scan against a float64 recurrence on
+# mamba2-130m's first layer at 2048 tokens, on the CPU, by
+# python -m repro_torch.serve.numerics), and
+# the kernel and ssd_scan round that sum in different orders: their
+# difference reached 6.8e-3 at RMS(y) ~2.3 on the card.  So the
+# absolute floor is 4e-3 x RMS(y); a wrong element (an error of order
+# RMS(y)) still fails by ~250x, and the relative L2 bound is unchanged.
+SSD_CALL_TOL = {dt: dict(tol, atol_rms=4e-3) for dt, tol in SSD_TOL.items()}
+# Whole-model float32 logits of the SSM paths against "chunked".
+# Random-weight Mamba2 stacks at full width amplify rounding about 1.6x
+# per layer: on the CPU (python -m repro_torch.serve.numerics), two
+# correct float32 algorithms (the per-token recurrence and the chunked
+# scan) end 0.09-2.6 % apart (relative L2) at mamba2-130m's 24 layers,
+# and decode 2.8 % from prefill.  So every
+# kernel call of these paths is gated against its plain version on its
+# own inputs (SSD_TOL, ATTN_TOL), and the logits only catch a gross
+# fault (a wrong kernel at one layer moves them by O(1)); the bf16
+# distances, where one-ulp differences grow to O(1), are printed.
+SSM_LM_TOL = dict(rel_l2=0.1, max_abs=1.0)
+#: (arch, layers): mamba2-130m at full depth, zamba2-2.7b cut to two
+#: of its shared-attention groups.
+SSM_PATHS = (("mamba2-130m", 24), ("zamba2-2.7b", 12))
 LM_ARCH = "qwen3-0.6b"
 PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_PROMPT, DECODE_STEPS, MAX_SEQ = 4, 16, 16, 4096
@@ -109,18 +157,33 @@ def close(got, want, tag: str, atol: float, rtol: float) -> float:
     return float(diff.max())
 
 
-def attn_close(got, want, tag: str) -> tuple[float, float]:
-    """(max abs err, relative L2 err) of an attention output against its
-    plain version; raises past ``ATTN_TOL`` of its dtype."""
+def gated(got, want, tag: str, tol: dict) -> tuple[float, float]:
+    """(max abs err, relative L2 err) of a kernel's output against its
+    plain version; raises past ``tol`` (atol, rtol, rel_l2, and
+    optionally atol_rms: an absolute floor of atol_rms x RMS(want))."""
     from repro_torch.serve import bench as sb
 
-    tol = ATTN_TOL[want.dtype]
-    e = close(got, want, tag, tol["atol"], tol["rtol"])
+    atol = tol["atol"]
+    if "atol_rms" in tol:
+        atol = max(atol, tol["atol_rms"]
+                   * float(want.float().pow(2).mean().sqrt()))
+    e = close(got, want, tag, atol, tol["rtol"])
     r = sb.rel_l2(got, want)
     if not r <= tol["rel_l2"]:
         raise AssertionError(f"{tag}: relative L2 err {r:.3e} past "
                              f"{tol['rel_l2']}")
     return e, r
+
+
+def attn_close(got, want, tag: str) -> tuple[float, float]:
+    """``gated`` at ``ATTN_TOL`` of the output's dtype."""
+    return gated(got, want, tag, ATTN_TOL[want.dtype])
+
+
+def ssd_close(got, want, tag: str, tols: dict = SSD_TOL) -> tuple[float,
+                                                                   float]:
+    """``gated`` at ``tols`` (``SSD_TOL``) of the output's dtype."""
+    return gated(got, want, tag, tols[want.dtype])
 
 
 def max_err(got: dict, want: dict, tag: str) -> float:
@@ -254,8 +317,6 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
     driven once with the launch counts set to 0 just before it, checked
     against the plain paths and timed; then K2 and K3 alone.  Returns
     their entries of the ``kernels`` line."""
-    import torch.nn.functional as F
-
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention import kernel as k2
     from repro_torch.kernels.flash_decode import kernel as k3
@@ -265,7 +326,6 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
     from repro_torch.serve import bench as sb
     from repro_torch.serve import greedy_decode, make_prefill_step
 
-    name = torch.cuda.get_device_name(dev)
     cfg = ARCHS[LM_ARCH].replace(attn_impl="pallas")
     dt = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -393,7 +453,8 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
               + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
     del caches
 
-    # K2 alone at the prefill shape
+    # K2 alone at the prefill shape, K3 alone over a full 4096-position
+    # bf16 cache
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = torch.randn((PREFILL_B, PREFILL_S, H, D), generator=gen,
                     device=dev).to(dt)
@@ -401,86 +462,453 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
                     device=dev).to(dt)
     v = torch.randn((PREFILL_B, PREFILL_S, KVH, D), generator=gen,
                     device=dev).to(dt)
+    e2 = k2_alone(q, k, v, LM_ARCH, flush, rate, smi,
+                  calls=cfg.n_layers, prefill_ms=prefill_ms)
+    del q, k, v
+    e3 = k3_alone(DECODE_B, H, KVH, D, dt, gen, LM_ARCH, flush, rate, smi)
+    return [
+        {"name": f"flash_attention[{LM_ARCH} prefill B={PREFILL_B} "
+                 f"S={PREFILL_S} causal bf16]",
+         "launches": k2_launches, **e2, "prefill_ms": prefill_ms},
+        {"name": f"flash_decode[{LM_ARCH} B={DECODE_B} S={MAX_SEQ} "
+                 f"bf16 cache]",
+         "launches": k3_launches, **e3, "decode_step_ms": step_ms},
+    ]
+
+
+def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
+             calls: int, prefill_ms: float) -> dict:
+    """K2 alone on (q, k, v), causal: its wrapper against the plain
+    version, then its launch timed beside the plain version, one
+    ``scaled_dot_product_attention`` call and its bound.  Returns the
+    fields of its ``kernels`` entry but the name and launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as k2
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.serve import bench as sb
+
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
     run = dict(causal=True, window=None, q_offset=0, scale=D ** -0.5)
     want = k2.flash_attention_plain(q, k, v, **run)
-    k2_err, k2_rel = attn_close(k2.flash_attention_fwd(q, k, v, **run), want,
-                                "K2 at the prefill shape")
+    err, rel = attn_close(k2.flash_attention_fwd(q, k, v, **run), want,
+                          f"K2 at the {tag} prefill shape")
     # time the launch alone, through the helper the wrapper launches by
     o, k2_run = k2.prepare(q, k, v, **run)
-    k2_blocks = k2_run()
-    attn_close(o, want, "K2 at the prefill shape, timed launch")
-    k2_ms = bench.event_ms(k2_run, flush)
-    k2_plain_ms = bench.event_ms(lambda: k2.flash_attention_plain(q, k, v,
-                                                                  **run),
-                                 flush, runs=5)
+    blocks = k2_run()
+    attn_close(o, want, f"K2 at the {tag} prefill shape, timed launch")
+    ms = bench.event_ms(k2_run, flush)
+    plain_ms = bench.event_ms(
+        lambda: k2.flash_attention_plain(q, k, v, **run), flush, runs=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    k2_lib_ms = bench.event_ms(
+    lib_ms = bench.event_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True), flush)
     flops, nbytes = sb.attention_work(q, k, v, causal=True, window=None,
                                       q_offset=0)
-    k2_bound, k2_by = sb.bound_ms(flops, nbytes, sb.bf16_peak(name),
-                                  rate)
-    print(f"K2 (B={PREFILL_B} S={PREFILL_S} H={H} KVH={KVH} D={D} causal "
-          f"bf16): ms={k2_ms:.4f}  plain_ms={k2_plain_ms:.3f}  "
-          f"sdpa_ms={k2_lib_ms:.4f}  flops={flops:.3e} bytes={nbytes}  "
-          f"bound_ms={k2_bound:.4f} ({k2_by})  "
-          f"{flops / k2_ms / 1e9:.1f} TFLOP/s  "
-          f"{100 * k2_ms * cfg.n_layers / prefill_ms:.1f} % of prefill  "
-          f"blocks={k2_blocks}  max_abs_err={k2_err:.3e}  "
-          f"rel_l2_err={k2_rel:.3e}  card: {smi}", flush=True)
-    del q, k, v, o, qt, kt, vt, want
+    bound, by = sb.bound_ms(flops, nbytes,
+                            sb.bf16_peak(torch.cuda.get_device_name(q.device)),
+                            rate)
+    print(f"K2 ({tag}: B={B} S={S} H={H} KVH={KVH} D={D} causal "
+          f"{str(q.dtype).replace('torch.', '')}): ms={ms:.4f}  "
+          f"plain_ms={plain_ms:.3f}  sdpa_ms={lib_ms:.4f}  "
+          f"flops={flops:.3e} bytes={nbytes}  bound_ms={bound:.4f} ({by})  "
+          f"{flops / ms / 1e9:.1f} TFLOP/s  "
+          f"{100 * ms * calls / prefill_ms:.1f} % of prefill  "
+          f"blocks={blocks}  max_abs_err={err:.3e}  "
+          f"rel_l2_err={rel:.3e}  card: {smi}", flush=True)
+    return {"route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "rel_l2_err": rel, "blocks": str(blocks)}
 
-    # K3 alone over a full 4096-position bf16 cache
-    q = torch.randn((DECODE_B, H, D), generator=gen, device=dev).to(dt)
-    kc = torch.randn((DECODE_B, MAX_SEQ, KVH, D), generator=gen,
-                     device=dev).to(dt)
-    vc = torch.randn((DECODE_B, MAX_SEQ, KVH, D), generator=gen,
-                     device=dev).to(dt)
-    lengths = torch.full((DECODE_B,), MAX_SEQ, dtype=torch.int32, device=dev)
+
+def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
+             rate: float, smi: str) -> dict:
+    """K3 alone over a full ``MAX_SEQ``-position cache of random values
+    from ``gen``: its wrapper against the plain version, then its launch
+    timed beside the plain version, one SDPA call and its bound.
+    Returns the fields of its ``kernels`` entry but the name and
+    launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as k3
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.serve import bench as sb
+
+    dev = gen.device
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dt)
+    kc = torch.randn((B, MAX_SEQ, KVH, D), generator=gen, device=dev).to(dt)
+    vc = torch.randn((B, MAX_SEQ, KVH, D), generator=gen, device=dev).to(dt)
+    lengths = torch.full((B,), MAX_SEQ, dtype=torch.int32, device=dev)
     want = k3.flash_decode_plain(q, kc, vc, lengths, window=None,
                                  scale=D ** -0.5)
-    k3_err, k3_rel = attn_close(k3.flash_decode(q, kc, vc, lengths), want,
-                                "K3 at a full cache")
+    err, rel = attn_close(k3.flash_decode(q, kc, vc, lengths), want,
+                          f"K3 at a full {tag} cache")
     o, k3_run = k3.prepare(q, kc, vc, lengths, window=None, scale=D ** -0.5)
-    k3_blocks = "+".join(map(str, k3_run()))  # split kernel + combine
-    attn_close(o, want, "K3 at a full cache, timed launch")
-    k3_ms = bench.event_ms(k3_run, flush)
-    k3_plain_ms = bench.event_ms(
+    blocks = "+".join(map(str, k3_run()))  # split kernel + combine
+    attn_close(o, want, f"K3 at a full {tag} cache, timed launch")
+    ms = bench.event_ms(k3_run, flush)
+    plain_ms = bench.event_ms(
         lambda: k3.flash_decode_plain(q, kc, vc, lengths, window=None,
                                       scale=D ** -0.5), flush)
     qt = q[:, :, None]
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-    k3_lib_ms = bench.event_ms(
+    lib_ms = bench.event_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
         flush)
     flops, nbytes = sb.decode_work(q, kc, vc, lengths, window=None)
-    k3_bound, k3_by = sb.bound_ms(flops, nbytes, sb.bf16_peak(name),
-                                  rate)
-    print(f"K3 (B={DECODE_B} H={H} KVH={KVH} D={D} S=lengths={MAX_SEQ} bf16 "
-          f"cache, blocks={k3_blocks} split+combine): "
-          f"ms={k3_ms:.4f}  plain_ms={k3_plain_ms:.4f}  "
-          f"sdpa_ms={k3_lib_ms:.4f}  bytes={nbytes}  "
-          f"bound_ms={k3_bound:.4f} ({k3_by})  "
-          f"{nbytes / k3_ms / 1e6:.1f} GB/s  max_abs_err={k3_err:.3e}  "
-          f"rel_l2_err={k3_rel:.3e}  card: {smi}", flush=True)
+    bound, by = sb.bound_ms(flops, nbytes,
+                            sb.bf16_peak(torch.cuda.get_device_name(dev)),
+                            rate)
+    print(f"K3 ({tag}: B={B} H={H} KVH={KVH} D={D} S=lengths={MAX_SEQ} "
+          f"{str(dt).replace('torch.', '')} cache, blocks={blocks} "
+          f"split+combine): ms={ms:.4f}  plain_ms={plain_ms:.4f}  "
+          f"sdpa_ms={lib_ms:.4f}  bytes={nbytes}  bound_ms={bound:.4f} "
+          f"({by})  {nbytes / ms / 1e6:.1f} GB/s  max_abs_err={err:.3e}  "
+          f"rel_l2_err={rel:.3e}  card: {smi}", flush=True)
+    return {"route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "rel_l2_err": rel, "blocks": blocks}
 
-    return [
-        {"name": f"flash_attention[{LM_ARCH} prefill B={PREFILL_B} "
-                 f"S={PREFILL_S} causal bf16]",
-         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": k2_lib_ms, "rel_l2_err": k2_rel,
-         "blocks": str(k2_blocks), "prefill_ms": prefill_ms},
-        {"name": f"flash_decode[{LM_ARCH} B={DECODE_B} S={MAX_SEQ} "
-                 f"bf16 cache]",
-         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": k3_lib_ms, "rel_l2_err": k3_rel,
-         "blocks": k3_blocks, "decode_step_ms": step_ms},
-    ]
+
+def ssd_conformance(dev) -> dict:
+    """K4 against its plain version on the card over the case grid;
+    returns the max (abs, relative L2) errors per x dtype."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import kernel as k4
+    from repro_torch.kernels.ssd import ssd_scan
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # S = 864 is a multiple of neither chunk: they halve to 32; steep
+    # steps (dt about 8, |A| up to 4) make every decay past a few tokens
+    # underflow
+    for dt, (N, P), chunk, S, B, steep in itertools.product(
+            (torch.float32, torch.bfloat16), ((128, 64), (64, 64)),
+            (256, 64), (512, 864), (1, 4), (False, True)):
+        H = 3
+        x = rnd(B, S, H, P, scale=0.5).to(dt)
+        dtv = F.softplus(rnd(B, S, H, scale=0.5) + (8.0 if steep else -1.0))
+        A = -torch.exp(rnd(H, scale=0.3)) * (3.0 if steep else 1.0)
+        Bm, Cm = rnd(B, S, N, scale=0.5), rnd(B, S, N, scale=0.5)
+        D = rnd(H, scale=0.2)
+        got = k4.ssd_kernel(x, dtv, A, Bm, Cm, D, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ssd_scan(x, dtv, A, Bm, Cm, D, chunk=k4.chunk_len(S, chunk))
+        e = ssd_close(got, want, f"K4 {dt} N={N} P={P} chunk={chunk} S={S} "
+                      f"B={B} steep={steep}")
+        key = ("ssd", str(dt))
+        errs[key] = tuple(map(max, errs.get(key, (0.0, 0.0)), e))
+    return errs
+
+
+def kernel_checks(stack: contextlib.ExitStack) -> dict:
+    """Enter, on ``stack``, a check of every call of the three LM kernel
+    wrappers against its plain version on its own inputs
+    (:func:`repro_torch.serve.bench.checked`); returns the lists of the
+    calls' errors by kernel."""
+    from repro_torch.kernels.flash_attention import kernel as k2
+    from repro_torch.kernels.flash_attention import ops as k2_ops
+    from repro_torch.kernels.flash_decode import kernel as k3
+    from repro_torch.kernels.flash_decode import ops as k3_ops
+    from repro_torch.kernels.ssd import kernel as k4
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.serve import bench as sb
+
+    def k4_plain(x, dt, A, Bm, Cm, D, *, chunk):
+        return ssd_scan(x, dt, A, Bm, Cm, D,
+                        chunk=k4.chunk_len(x.shape[1], chunk))
+
+    def k2_plain(q, k, v, *, causal, window, q_offset, scale):
+        return k2.flash_attention_plain(
+            q, k, v, causal=causal, window=window,
+            q_offset=k.shape[1] - q.shape[1] if q_offset is None
+            else q_offset,
+            scale=q.shape[-1] ** -0.5 if scale is None else scale)
+
+    def k3_plain(q, k_cache, v_cache, lengths, *, window, scale):
+        return k3.flash_decode_plain(
+            q, k_cache, v_cache, lengths, window=window,
+            scale=q.shape[-1] ** -0.5 if scale is None else scale)
+
+    return {
+        "K4": stack.enter_context(sb.checked(
+            k4, "ssd_kernel", k4_plain,
+            lambda g, w: ssd_close(g, w, "K4 call of the main path",
+                                   SSD_CALL_TOL))),
+        "K2": stack.enter_context(sb.checked(
+            k2_ops, "flash_attention_fwd", k2_plain,
+            lambda g, w: attn_close(g, w, "K2 call of the main path"))),
+        "K3": stack.enter_context(sb.checked(
+            k3_ops, "flash_decode", k3_plain,
+            lambda g, w: attn_close(g, w, "K3 call of the main path"))),
+    }
+
+
+def worst(calls: list) -> tuple[float, float]:
+    """The largest (abs, relative L2) errors over checked calls."""
+    return (max((c[0][0] for c in calls), default=0.0),
+            max((c[0][1] for c in calls), default=0.0))
+
+
+def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
+              smi: str) -> list:
+    """An SSM main path at full width with ``layers`` layers: prefill,
+    then greedy decode, each driven once with the launch counts set to 0
+    just before it and every kernel call held against its plain version;
+    the logits against the plain path; timed and profiled; then K4 (and,
+    in the hybrid family, K2 and K3) alone at the path's shapes.
+    Returns their entries of the ``kernels`` line."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import kernel as k2
+    from repro_torch.kernels.flash_decode import kernel as k3
+    from repro_torch.kernels.ssd import kernel as k4
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import cast
+    from repro_torch.serve import bench as sb
+    from repro_torch.serve import greedy_decode, make_prefill_step
+
+    def counts():
+        return {"K4": k4.launches, "K2": k2.launches, "K3": k3.launches}
+
+    def zero_counts():
+        k2.launches = k3.launches = k4.launches = 0
+
+    name = torch.cuda.get_device_name(dev)
+    cfg = ARCHS[arch].replace(attn_impl="pallas", n_layers=layers)
+    groups = layers // cfg.hybrid.attn_every if cfg.hybrid else 0
+    s = cfg.ssm
+    H, N, P = s.n_heads(cfg.d_model), s.d_state, s.head_dim
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    masters = init_params(gen, cfg, device=dev)
+    params = cast(masters, dt)
+    torch.cuda.synchronize()
+    attn = (f" + a shared attention block after every "
+            f"{cfg.hybrid.attn_every} (heads={cfg.n_heads}/{cfg.n_kv_heads} "
+            f"head_dim={cfg.hd} d_ff={cfg.d_ff})" if groups else "")
+    print(f"lm: {arch} {layers} of {ARCHS[arch].n_layers} layers "
+          f"d_model={cfg.d_model} ssd heads={H} N={N} P={P} "
+          f"chunk={cfg.ssd_chunk}{attn} vocab={cfg.vocab}, bf16 weights "
+          f"from seed 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # prefill: B=4 prompts of S=2048, every kernel call checked
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(cfg, device=dev)
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_counts()
+        logits, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = counts()
+    expect = {"K4": layers, "K2": groups, "K3": 0}
+    if launches != expect:
+        raise AssertionError(f"{arch} prefill: launches {launches}, "
+                             f"expected {expect}")
+    if logits.shape != (PREFILL_B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill: logits "
+                             f"{tuple(logits.shape)} or non-finite")
+    k4_call = worst(calls["K4"])
+    _, k4_args, k4_kw = calls["K4"][0]
+    k2_call = worst(calls["K2"])
+    k2_args = calls["K2"][0][1] if groups else None
+    del calls
+    # the plain path on the same weights: bf16 distances are printed
+    plain = cfg.replace(attn_impl="chunked")
+    chunked, plain_caches = make_prefill_step(plain, device=dev)(params,
+                                                                 batch)
+    spread = {"logits_vs_chunked": sb.rel_l2(logits, chunked)}
+    if groups:
+        spread["caches_vs_chunked"] = max(
+            sb.rel_l2(g, w) for g, w in zip(caches, plain_caches))
+    del caches, plain_caches, chunked
+    # float32 masters: every call checked, the logits gated against
+    # "chunked", and the spread of two plain chunk lengths printed
+    f32 = cfg.replace(dtype="float32")
+    with contextlib.ExitStack() as stack:
+        calls32 = kernel_checks(stack)
+        got32, _ = make_prefill_step(f32, device=dev)(masters, batch)
+        k4_call32, k2_call32 = worst(calls32["K4"]), worst(calls32["K2"])
+        del calls32
+    want32, _ = make_prefill_step(f32.replace(attn_impl="chunked"),
+                                  device=dev)(masters, batch)
+    check32 = lm_check(got32, want32, f"{arch} float32 prefill vs chunked",
+                       **SSM_LM_TOL)
+    other32, _ = make_prefill_step(
+        f32.replace(attn_impl="chunked", ssd_chunk=64), device=dev)(masters,
+                                                                    batch)
+    spread["f32_chunk64_vs_chunk256"] = sb.rel_l2(other32, want32)
+    del got32, want32, other32
+    prefill_ms = bench.event_ms(lambda: prefill(params, batch), flush,
+                                runs=5)
+    print(f"{arch} prefill B={PREFILL_B} S={PREFILL_S}: launches {launches}"
+          f"  every K4 call vs ssd_scan (max abs, rel L2): bf16 {k4_call} "
+          f"f32 {k4_call32}"
+          + (f"  every K2 call vs plain: bf16 {k2_call} f32 {k2_call32}"
+             if groups else "")
+          + f"  float32 logits vs chunked {check32}  rel L2 {spread}  "
+          f"prefill_ms={prefill_ms:.3f}  "
+          f"tokens/s={PREFILL_B * PREFILL_S / prefill_ms * 1e3:.0f}  "
+          f"card: {smi}", flush=True)
+
+    # greedy decode: B=4, 16-token prompts, 16 steps, bf16 caches
+    prompt = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_PROMPT),
+                           generator=gen, device=dev)
+    n_steps = DECODE_PROMPT + DECODE_STEPS - 1
+    seen = []
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_counts()
+        out = greedy_decode(params, cfg, prompt, DECODE_STEPS, MAX_SEQ,
+                            cache_dtype=dt, device=dev, on_logits=seen.append)
+        torch.cuda.synchronize()
+        dlaunches = counts()
+        k3_call = worst(calls["K3"])
+        del calls
+    expect = {"K4": 0, "K2": 0, "K3": groups * n_steps}
+    if dlaunches != expect:
+        raise AssertionError(f"{arch} decode: launches {dlaunches}, "
+                             f"expected {expect}")
+    if out.shape != (DECODE_B, DECODE_STEPS) or \
+            not bool(((out >= 0) & (out < cfg.vocab)).all()) or \
+            not all(bool(torch.isfinite(x).all()) for x in seen):
+        raise AssertionError(f"{arch} decode: tokens {tuple(out.shape)} out "
+                             f"of range, or non-finite logits")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy_decode(params, cfg, prompt, DECODE_STEPS, MAX_SEQ, cache_dtype=dt,
+                  device=dev)
+    torch.cuda.synchronize()
+    greedy_ms = (time.perf_counter() - t0) * 1e3
+    feed = torch.cat([prompt, out[:, :-1]], dim=1)
+    # bf16: the decode steps against the plain path (the hybrid family's
+    # attention by "reference", as for qwen3-0.6b) and against the
+    # prefill path on the same tokens; printed
+    ref_cfg = cfg.replace(attn_impl="reference")
+    caches = init_caches(ref_cfg, DECODE_B, MAX_SEQ, cache_dtype=dt,
+                         device=dev)
+    lengths = torch.zeros((DECODE_B,), dtype=torch.int32, device=dev)
+    fwd = forward(params, {"tokens": feed}, cfg)["logits"]
+    vs_ref = vs_fwd = 0.0
+    for t in range(n_steps):
+        lengths = lengths + 1
+        if groups:  # without attention the two paths are one
+            want = decode_step(params, feed[:, t], caches, lengths, ref_cfg)
+            vs_ref = max(vs_ref, sb.rel_l2(seen[t], want))
+        vs_fwd = max(vs_fwd, sb.rel_l2(seen[t], fwd[:, t]))
+    # float32: the decode recurrence against the prefill path with the
+    # kernels on the same tokens, gated
+    caches = init_caches(f32, DECODE_B, MAX_SEQ, cache_dtype=torch.float32,
+                         device=dev)
+    lengths = torch.zeros((DECODE_B,), dtype=torch.int32, device=dev)
+    fwd = forward(masters, {"tokens": feed}, f32)["logits"]
+    worst32 = {"rel_l2": 0.0, "max_abs_err": 0.0}
+    for t in range(n_steps):
+        lengths = lengths + 1
+        got = decode_step(masters, feed[:, t], caches, lengths, f32)
+        c = lm_check(got, fwd[:, t], f"{arch} float32 decode step {t} vs "
+                     f"prefill", **SSM_LM_TOL)
+        worst32 = {k: max(worst32[k], c[k]) for k in worst32}
+    del fwd
+    # a steady decode step: the kernel path's caches at the prompt's end
+    caches = init_caches(cfg, DECODE_B, MAX_SEQ, cache_dtype=dt, device=dev)
+    lengths = torch.zeros((DECODE_B,), dtype=torch.int32, device=dev)
+    for t in range(n_steps):
+        lengths = lengths + 1
+        decode_step(params, feed[:, t], caches, lengths, cfg)
+    step_ms = bench.event_ms(
+        lambda: decode_step(params, feed[:, -1], caches, lengths, cfg),
+        flush, runs=20)
+    print(f"{arch} decode B={DECODE_B} prompt={DECODE_PROMPT} "
+          f"steps={DECODE_STEPS} bf16 caches: launches {dlaunches}"
+          + (f"  every K3 call vs plain {k3_call}" if groups else "")
+          + "  per-step logits rel L2: "
+          + (f"vs reference attention {vs_ref:.3e}, " if groups else "")
+          + f"vs prefill {vs_fwd:.3e}  float32 decode vs prefill {worst32}  "
+          f"greedy_ms={greedy_ms:.1f} ({n_steps} steps, "
+          f"{greedy_ms / n_steps:.3f} ms/step incl. host)  "
+          f"step_ms={step_ms:.3f} at length {int(lengths[0])}  "
+          f"tokens/s={DECODE_B / step_ms * 1e3:.0f}  card: {smi}",
+          flush=True)
+    for tag, fn, runs, plain_wall in (
+            ("prefill", lambda: prefill(params, batch), 1, prefill_ms),
+            ("decode step", lambda: decode_step(params, feed[:, -1], caches,
+                                                lengths, cfg), 5, step_ms)):
+        wall, dev_ms, top = sb.device_share(fn, runs)
+        if dev_ms == 0:
+            print(f"profile {arch} {tag}: wall_ms={wall:.3f}, the profiler "
+                  f"saw no device time: busy share not measured", flush=True)
+            continue
+        print(f"profile {arch} {tag}: device_ms={dev_ms:.3f}  profiled "
+              f"wall_ms={wall:.3f} (busy >= {100 * dev_ms / wall:.1f} %)  "
+              f"event ms={plain_wall:.3f} (busy ~ "
+              f"{100 * dev_ms / plain_wall:.1f} %)  top kernels (ms): "
+              + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
+    del caches
+
+    # K4 alone on the first layer's inputs of the driven prefill
+    x, dtv, A, Bm, Cm, D = k4_args
+    L = k4.chunk_len(x.shape[1], k4_kw["chunk"])
+    want = ssd_scan(x, dtv, A, Bm, Cm, D, chunk=L)
+    y, k4_run = k4.prepare(x, dtv, A, Bm, Cm, D, **k4_kw)
+    blocks = k4_run()
+    k4_err, k4_rel = ssd_close(y, want, f"K4 at the {arch} prefill shape, "
+                               f"timed launch", SSD_CALL_TOL)
+    k4_ms = bench.event_ms(k4_run, flush)
+    k4_plain_ms = bench.event_ms(
+        lambda: ssd_scan(x, dtv, A, Bm, Cm, D, chunk=L), flush, runs=5)
+    flops, nbytes = sb.ssd_work(x, dtv, Bm, Cm, D, L)
+    k4_bound, k4_by = sb.bound_ms(flops, nbytes, sb.f32_peak(name), rate)
+    print(f"K4 ({arch}: B={x.shape[0]} S={x.shape[1]} H={H} P={P} N={N} "
+          f"L={L} x {str(x.dtype).replace('torch.', '')}): ms={k4_ms:.4f}  "
+          f"plain_ms={k4_plain_ms:.3f}  flops={flops:.3e} bytes={nbytes}  "
+          f"bound_ms={k4_bound:.4f} ({k4_by}; float32 at "
+          f"{sb.f32_peak(name) / 1e12:.0f} TFLOP/s, bytes at "
+          f"{rate / 1e12:.2f} TB/s)  {flops / k4_ms / 1e9:.2f} TFLOP/s  "
+          f"{100 * k4_ms * layers / prefill_ms:.1f} % of prefill  "
+          f"blocks={blocks}  max_abs_err={k4_err:.3e}  "
+          f"rel_l2_err={k4_rel:.3e}  card: {smi}", flush=True)
+    entries = [{
+        "name": f"ssd[{arch} prefill B={PREFILL_B} S={PREFILL_S} H={H} "
+                f"P={P} N={N} L={L} x bf16]",
+        "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
+        "launches": launches["K4"], "max_abs_err": k4_call[0], "ms": k4_ms,
+        "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+        "library_ms": None, "rel_l2_err": k4_call[1], "blocks": str(blocks),
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms}]
+    del x, dtv, A, Bm, Cm, D, k4_args, y, want
+    if groups:
+        q, k, v = k2_args
+        e2 = k2_alone(q, k, v, arch, flush, rate, smi, calls=groups,
+                      prefill_ms=prefill_ms)
+        del q, k, v, k2_args
+        e3 = k3_alone(DECODE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt, gen,
+                      arch, flush, rate, smi)
+        entries += [
+            {"name": f"flash_attention[{arch} prefill B={PREFILL_B} "
+                     f"S={PREFILL_S} causal bf16]",
+             "launches": launches["K2"], **e2, "max_abs_err": k2_call[0],
+             "rel_l2_err": k2_call[1], "prefill_ms": prefill_ms},
+            {"name": f"flash_decode[{arch} B={DECODE_B} S={MAX_SEQ} "
+                     f"bf16 cache]",
+             "launches": dlaunches["K3"], **e3, "max_abs_err": k3_call[0],
+             "rel_l2_err": k3_call[1], "decode_step_ms": step_ms}]
+    return entries
 
 
 def main() -> int:
@@ -492,6 +920,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as k2
     from repro_torch.kernels.flash_decode import kernel as k3
+    from repro_torch.kernels.ssd import kernel as k4
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
 
@@ -510,15 +939,16 @@ def main() -> int:
           f"{build.nvcc_version().strip().splitlines()[-1]}  card: {smi}",
           flush=True)
 
-    # 2. build every kernel in parallel: K1 for the 15 programs, K2, K3
+    # 2. build every kernel in parallel: K1 for the 15 programs, K2-K4
     plans = {n: compile_program(b(), backend="interp_torch",
                                 device=dev).kernel_plan
              for n, b in sorted(ALL_PROGRAMS.items())}
     calls = [c for kp in plans.values() for c in kp.calls if c.has_grid]
     t0 = time.perf_counter()
-    _, built = build.build([*(k1.job(c) for c in calls), k2.job(), k3.job()])
+    _, built = build.build([*(k1.job(c) for c in calls), k2.job(), k3.job(),
+                            k4.job()])
     print(f"build: {len(calls)} stencil calls + flash attention + flash "
-          f"decode, {built} sources compiled in "
+          f"decode + ssd, {built} sources compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. conformance: "cuda" against "interp_torch", both on the card
@@ -552,7 +982,18 @@ def main() -> int:
     # 6. the LM main path at full width
     entries += serve_lm(dev, flush, rate, smi)
 
-    # 7. the kernels line, the card, and the result
+    # 7. SSD conformance on the card
+    t0 = time.perf_counter()
+    for (kern, dts), (e, r) in sorted(ssd_conformance(dev).items()):
+        print(f"conformance {kern:15s} {dts:30s} max_abs_err: {e:.3e}  "
+              f"rel_l2_err: {r:.3e}", flush=True)
+    print(f"ssd conformance: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 8. the SSM main paths at full width
+    for arch, layers in SSM_PATHS:
+        entries += serve_ssm(arch, layers, dev, flush, rate, smi)
+
+    # 9. the kernels line, the card, and the result
     print(json.dumps({"kernels": entries}))
     print(bench.smi_line())
     print(json.dumps({"ok": True, "device": {

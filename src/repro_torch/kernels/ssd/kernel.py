@@ -1,0 +1,170 @@
+"""The Mamba2 SSD chunked scan on Hopper: K4 of the port.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py:ssd_pallas``.
+The CUDA C++ source is ``csrc/ssd.cu`` (its header comment gives the
+design and what bounds it): one block per (batch, head) walks the chunks
+in order with the (N, P) float32 state in shared memory, and makes each
+chunk's causal L x L product one 64 x 64 tile at a time.  It is built
+with ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`),
+loaded with ``ctypes`` and launched on PyTorch's current stream.
+
+:func:`ssd_kernel` launches the kernel for CUDA tensors and raises on
+anything it does not take; for CPU tensors it runs
+:func:`~repro_torch.kernels.ssd.ops.ssd_scan`, the kernel's plain version.
+Both take the chunk length as the reference's kernel does
+(:func:`chunk_len`), so a sequence that is not a multiple of the chunk
+still runs.  :data:`launches` counts its calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+
+import torch
+
+from .. import build
+from .ops import ssd_scan
+
+#: Largest head dim and state dim the kernel takes.
+MAX_P, MAX_N = 64, 128
+#: Rows of one tile of the chunk's product, and threads of a block.
+TILE, THREADS = 64, 256
+#: Shared memory one block may use on the card, in bytes.
+MAX_SMEM = 232448
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "ssd.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Calls of :func:`ssd_kernel` that launched the kernel.
+launches = 0
+_LIB: list[ctypes.CDLL] = []
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ssd_forward.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p]
+    lib.ssd_forward.restype = ctypes.c_int
+    lib.ssd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_error_string.restype = ctypes.c_char_p
+
+
+def job() -> build.Job:
+    """The build job of the kernel's library."""
+    return build.Job(SOURCE.read_text(), (), CSRC, _bind)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel's library, built on first use."""
+    if not _LIB:
+        _LIB.append(build.build([job()])[0][0])
+    return _LIB[0]
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """The chunk length the reference's kernel takes: ``min(chunk, S)``,
+    halved until it divides ``S``."""
+    L = min(chunk, S)
+    while L > 1 and S % L:
+        L //= 2
+    return L
+
+
+def smem_bytes(N: int, P: int, L: int) -> int:
+    """Dynamic shared memory of one block (as ``ssd.cu`` lays it out)."""
+    return 4 * (N * P + 2 * L + TILE * (N + 1) + N * (TILE + 1) + TILE * P
+                + TILE * (TILE + 1))
+
+
+def _check(x, dt, A, Bm, Cm, D) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
+    B, S, H, _ = x.shape
+    N = Bm.shape[-1] if Bm.ndim == 3 else -1
+    want = {"dt": (B, S, H), "A": (H,), "Bm": (B, S, N), "Cm": (B, S, N),
+            "D": (H,)}
+    for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want[name]} for x {tuple(x.shape)}")
+
+
+def launch(lib, x, dt, A, Bm, Cm, D, y, *, L: int, stream) -> int:
+    """One launch writing ``y`` on ``stream`` (a ``cudaStream_t`` as an
+    int) with chunks of ``L`` tokens; ``A`` and ``D`` float32 and
+    contiguous.  Returns the blocks it launched; raises when refused."""
+    B, S, H, P = x.shape
+    ints = [_DTYPES[x.dtype], B, S, H, P, Bm.shape[-1], L,
+            *x.stride()[:3], *dt.stride(), *y.stride()[:3],
+            *Bm.stride()[:2], *Cm.stride()[:2]]
+    ptrs = (ctypes.c_void_p * 7)(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                 Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+                                 y.data_ptr())
+    grid = ctypes.c_longlong()
+    rc = lib.ssd_forward(ptrs, (ctypes.c_longlong * len(ints))(*ints),
+                         stream, ctypes.byref(grid))
+    if rc != 0:
+        raise RuntimeError(f"ssd launch failed: "
+                           f"{lib.ssd_error_string(rc).decode()} ({rc})")
+    return grid.value
+
+
+def prepare(x, dt, A, Bm, Cm, D, *, chunk: int):
+    """Check a call on CUDA tensors and allocate its output.  Returns
+    ``(y, run)``: ``run()`` launches the kernel once on the current
+    stream, writing ``y``, and returns the blocks it launched.  Raises on
+    anything the kernel does not take.  :func:`ssd_kernel` launches
+    through it; a timing loop may call ``run`` alone."""
+    _check(x, dt, A, Bm, Cm, D)
+    tensors = (x, dt, A, Bm, Cm, D)
+    if not (x.device.type == "cuda"
+            and all(t.device == x.device for t in tensors)):
+        raise ValueError(f"the ssd kernel takes its tensors on one CUDA "
+                         f"device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"the ssd kernel builds for x in float32 and "
+                         f"bfloat16, not {x.dtype}")
+    for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"the ssd kernel takes {name} in float32, not "
+                             f"{t.dtype}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if not (1 <= P <= MAX_P and 1 <= N <= MAX_N):
+        raise ValueError(f"the ssd kernel takes head dims up to {MAX_P} and "
+                         f"state dims up to {MAX_N}, not P={P}, N={N}")
+    if x.stride(3) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1:
+        raise ValueError("the ssd kernel needs the head dim of x and the "
+                         "state dim of Bm and Cm contiguous")
+    L = chunk_len(S, chunk) if S else 1
+    if smem_bytes(N, P, L) > MAX_SMEM:
+        raise ValueError(f"chunks of {L} tokens need "
+                         f"{smem_bytes(N, P, L)} bytes of shared memory, "
+                         f"more than the {MAX_SMEM} a block may use")
+    A = A.to(torch.float32).contiguous()
+    D = D.to(torch.float32).contiguous()
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    lib = library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run() -> int:
+        with torch.cuda.device(x.device):
+            return launch(lib, x, dt, A, Bm, Cm, D, y, L=L, stream=stream)
+
+    return y, run
+
+
+def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+               chunk: int = 128) -> torch.Tensor:
+    """x (B, S, H, P), dt (B, S, H) post-softplus, A (H,) negative,
+    Bm/Cm (B, S, N), D (H,) -> y (B, S, H, P) in x's dtype."""
+    global launches
+    _check(x, dt, A, Bm, Cm, D)
+    if all(t.device.type == "cpu" for t in (x, dt, A, Bm, Cm, D)):
+        return ssd_scan(x, dt, A, Bm, Cm, D,
+                        chunk=chunk_len(x.shape[1], chunk))
+    y, run = prepare(x, dt, A, Bm, Cm, D, chunk=chunk)
+    run()
+    launches += 1
+    return y

@@ -3,9 +3,10 @@
 :func:`params_from_jax` takes the JAX package's parameter pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dictionary on ``device``: the stacked leading layer axis of
-``blocks`` becomes one dictionary per layer, and every weight keeps its
-``(d_in, d_out)`` layout (the port computes ``x @ w`` as the reference
-does), so nothing is transposed.
+``blocks`` becomes one dictionary per layer, every other entry (the
+hybrid family's ``shared_attn`` block included) is converted as it
+nests, and every weight keeps its ``(d_in, d_out)`` layout (the port
+computes ``x @ w`` as the reference does), so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -14,11 +15,17 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.interpreters import resolve_device
-from .lm import require_dense
+from .lm import require_ported
 
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
 
 
 def _split_layers(tree, n: int, device) -> list:
@@ -37,8 +44,8 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> dict:
     """The port's parameters from the reference's pytree of numpy
     arrays, on ``device`` (the current CUDA device unless
     ``device="cpu"`` is given)."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
-    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "blocks"}
+    out = {k: _convert(v, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = _split_layers(tree["blocks"], cfg.n_layers, dev)
     return out

@@ -1,14 +1,16 @@
-"""Measuring the LM serving path and its attention kernels on the card.
+"""Measuring the LM serving path and its kernels on the card.
 
-The work and the bytes each attention call must do, counted from its
-inputs (each input read once, each output written once; for decode only
-the valid part of the caches), the card's peak rates by name, and the
-device's share of a step by ``torch.profiler``.  ``chip_smoke.py``
-uses them; timing itself uses the CUDA-event helpers of
-:mod:`repro_torch.kernels.stencil2d.bench`.
+The work and the bytes each attention or SSD call must do, counted from
+its inputs (each input read once, each output written once; for decode
+only the valid part of the caches), the card's peak rates by name, the
+device's share of a step by ``torch.profiler``, and :func:`checked`,
+which holds every call of a kernel wrapper against its plain version
+while a model runs.  ``chip_smoke.py`` uses them; timing itself uses the
+CUDA-event helpers of :mod:`repro_torch.kernels.stencil2d.bench`.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -20,12 +22,26 @@ BF16_PEAK = (("H200", 989e12), ("H100 NVL", 835e12), ("H100 PCIe", 756e12),
              ("H100", 989e12))
 
 
-def bf16_peak(name: str) -> float:
-    """The card's dense bf16 tensor-core rate."""
-    for key, rate in BF16_PEAK:
+#: float32 peaks outside the tensor cores (FLOP/s), from the same sheets.
+F32_PEAK = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12),
+            ("H100", 67e12))
+
+
+def _peak(table, name: str) -> float:
+    for key, rate in table:
         if key in name:
             return rate
     raise RuntimeError(f"no peak rate known for {name!r}")
+
+
+def bf16_peak(name: str) -> float:
+    """The card's dense bf16 tensor-core rate."""
+    return _peak(BF16_PEAK, name)
+
+
+def f32_peak(name: str) -> float:
+    """The card's float32 rate outside the tensor cores."""
+    return _peak(F32_PEAK, name)
 
 
 def attention_pairs(Sq: int, Skv: int, *, causal: bool, window, q_offset: int,
@@ -70,6 +86,24 @@ def decode_work(q, k_cache, v_cache, lengths, *, window):
     return flops, nbytes
 
 
+def ssd_work(x, dt, Bm, Cm, D, L: int):
+    """(flops, bytes) of one SSD scan with chunks of ``L`` tokens: per
+    (batch, head, chunk) the causal half of C B^T and of M x (2 (N + P)
+    flops per pair u <= t), and, for every chunk but the first, the
+    rolled-in state C S and the state update B^T X (2 N P L flops each;
+    the first chunk's state is zero, the last chunk's update is not an
+    output).  x, dt, Bm, Cm, A, D read once and y written once."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // L
+    pairs = L * (L + 1) // 2
+    flops = Bsz * H * (nc * pairs * 2 * (N + P) + (nc - 1) * 4 * N * P * L)
+    nbytes = (2 * x.numel() * x.element_size()
+              + sum(t.numel() * t.element_size() for t in (dt, Bm, Cm))
+              + 2 * D.numel() * 4)
+    return flops, nbytes
+
+
 def bound_ms(flops: float, nbytes: float, flop_rate: float,
              byte_rate: float) -> tuple[float, str]:
     """The least time for the work, and which of the two bounds it."""
@@ -109,3 +143,28 @@ def device_share(fn, runs: int = 3):
                  reverse=True)[:6]
     return wall_ms, dev_ms, [(e.key[:60], e.self_device_time_total / 1e3
                               / runs) for e in top]
+
+
+@contextlib.contextmanager
+def checked(module, name: str, plain, close):
+    """While active, every call of ``module.<name>`` (a kernel wrapper)
+    is followed by ``plain`` on the same arguments, and ``close(got,
+    want)`` -- which raises past its tolerance -- gives the call's
+    errors.  Yields a list that receives, per call, ``(errors, args,
+    kwargs)``; only the first call keeps its arguments.  The plain
+    version launches no kernel, so the wrappers' launch counts see only
+    the model's own calls."""
+    real = getattr(module, name)
+    calls: list = []
+
+    def wrapper(*args, **kw):
+        got = real(*args, **kw)
+        errs = close(got, plain(*args, **kw))
+        calls.append((errs, args, kw) if not calls else (errs, None, None))
+        return got
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)

@@ -18,7 +18,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.interpreters import resolve_device
 from ..models.lm import decode_step as _decode_step
-from ..models.lm import forward, init_caches, require_dense
+from ..models.lm import forward, init_caches, require_ported
 
 
 def _require_on(params: dict, dev: torch.device) -> None:
@@ -30,8 +30,10 @@ def _require_on(params: dict, dev: torch.device) -> None:
 
 def make_prefill_step(cfg: ArchConfig, *, device=None):
     """``prefill_step(params, batch) -> (last-position logits (B, V),
-    caches (k, v))``."""
-    require_dense(cfg)
+    caches)``: the caches are ``(k, v)`` stacked over the layers (dense)
+    or over the shared block's groups (hybrid), and ``None`` for the ssm
+    family, as in the reference."""
+    require_ported(cfg)
     dev = resolve_device(device)
 
     def prefill_step(params, batch):
@@ -45,8 +47,9 @@ def make_prefill_step(cfg: ArchConfig, *, device=None):
 
 def make_decode_step(cfg: ArchConfig, *, device=None):
     """``serve_step(params, token, caches, lengths) -> logits (B, V)``;
-    writes the new KV into ``caches`` in place."""
-    require_dense(cfg)
+    writes the new KV entries (and, for the ssm and hybrid families, the
+    conv windows and SSM states) into ``caches`` in place."""
+    require_ported(cfg)
     dev = resolve_device(device)
 
     def serve_step(params, token, caches, lengths):

@@ -25,9 +25,10 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for sub in ("kernels.stencil2d.kernel", "kernels.build",
                 "kernels.flash_attention.kernel",
-                "kernels.flash_decode.kernel", "configs.registry",
-                "models.lm", "models.convert", "serve.engine",
-                "serve.bench"):
+                "kernels.flash_decode.kernel", "kernels.ssd.kernel",
+                "kernels.ssd.ops", "kernels.ssd.ref", "configs.registry",
+                "models.lm", "models.ssm", "models.convert",
+                "serve.engine", "serve.bench"):
         assert f"repro_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

@@ -303,8 +303,7 @@ def test_greedy_decode_validates_like_reference():
     assert out.shape == (2, 0) and out.dtype == torch.int32
 
 
-@pytest.mark.parametrize("name", ["mamba2-130m", "mixtral-8x7b",
-                                  "zamba2-2.7b", "whisper-small",
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "whisper-small",
                                   "qwen2-vl-72b"])
 def test_other_families_name_their_roadmap_item(name):
     cfg = smoke(ARCHS[name])
