@@ -12,7 +12,9 @@ Phases, each of which raises on failure:
 1. environment: torch, CUDA and nvcc versions, the card's name and
    power limit;
 2. build: every CallPlan of the 15 programs is emitted and built with
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together; the tensor-core
+   instructions of K2's library are counted (``cuobjdump -sass``, HMMA),
+   and the run fails if there are none;
 3. conformance: all 15 programs on the ``"cuda"`` kernel against the
    plain ``"interp_torch"`` interpreter, both on the card, with a small
    forced row chunk and with the default one;
@@ -39,8 +41,11 @@ Phases, each of which raises on failure:
    same weights and tokens, and the float32 prefill against
    ``"chunked"``, then timed;
    K2 and K3 alone at the prefill shape and at a full 4096-position
-   cache, beside their plain versions, their bounds and one
-   ``scaled_dot_product_attention`` call as a yardstick;
+   cache, beside their plain versions, their bounds, one
+   ``scaled_dot_product_attention`` call as a yardstick and the times
+   that the kernels they replaced took in an earlier run; K3 again at
+   the main path's lengths (31 of 4096), with the split blocks it
+   launched and those that held keys;
 7. SSD conformance: the SSD chunked scan (K4) against its plain version
    ``ssd_scan`` on the card, x in float32 and bf16, (N, P) = (128, 64)
    and (64, 64), chunks of 256 and 64, sequences that are a multiple of
@@ -57,6 +62,11 @@ Phases, each of which raises on failure:
 9. the ``kernels`` line: for each kernel and main path, its launches in
    one driven run (counts set to zero just before it), its error
    against the plain version, its times and its bound.
+
+Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is the
+device's alone: the host enqueues the call while the device spins
+(``bench.device_ms``).  The end-to-end times (``fn_ms``, prefill, decode
+step) include the host's launches (``bench.event_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -88,9 +98,9 @@ K4_REPLACES = "src/repro/kernels/ssd/kernel.py:61"
 # tests; bf16: the same float32 arithmetic and one rounding of the output
 # to bf16 in each version, at most 2**-7 relative apart, doubled.  The
 # relative L2 bound is what catches a wrong tile or split (a dropped one
-# of the 16 splits of a 4096-position cache reads about 0.25); it stands
-# 13x (bf16) and 40x (float32) above the largest error measured on an
-# H100 over all shapes here (PERF.md).
+# of the 8 working splits of a 4096-position cache reads about 0.35); it
+# stood 13x (bf16) and 40x (float32) above the largest error measured on
+# an H100 over all shapes here before K2's tensor-core redesign (PERF.md).
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4, rel_l2=1e-5),
             torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2, rel_l2=1e-3)}
 # Full-width logits, kernel path against the plain paths.  bf16 against
@@ -134,6 +144,12 @@ SSM_LM_TOL = dict(rel_l2=0.1, max_abs=1.0)
 #: (arch, layers): mamba2-130m at full depth, zamba2-2.7b cut to two
 #: of its shared-attention groups.
 SSM_PATHS = (("mamba2-130m", 24), ("zamba2-2.7b", 12))
+#: The earlier scalar K2 and chunk-split K3 alone at each path's shape
+#: (PERF.md's kernel table: NVIDIA H100 80GB HBM3 at 700 W, timed with
+#: the host's launch inside), printed beside the new times and nowhere
+#: else.
+EARLIER_MS = {("K2", "qwen3-0.6b"): 3.3810, ("K2", "zamba2-2.7b"): 4.6541,
+              ("K3", "qwen3-0.6b"): 0.1146, ("K3", "zamba2-2.7b"): 0.1554}
 LM_ARCH = "qwen3-0.6b"
 PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_PROMPT, DECODE_STEPS, MAX_SEQ = 4, 16, 16, 4096
@@ -421,7 +437,9 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
                     device=dev).to(dt)
     _, k3_step = k3.prepare(q, caches["k"][0], caches["v"][0], lengths,
                             window=None, scale=cfg.hd ** -0.5)
-    k3_step_ms = bench.event_ms(k3_step, flush, runs=20)
+    k3_step_ms = bench.device_ms(k3_step, flush, runs=20)
+    step_split = k3_step()
+    torch.cuda.synchronize()
     print(f"decode B={DECODE_B} prompt={DECODE_PROMPT} steps={DECODE_STEPS} "
           f"max_seq={MAX_SEQ} bf16 caches: K3 launches={k3_launches} "
           f"(K2 {k2_decode})  per-step logits vs reference {worst}  "
@@ -430,7 +448,9 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
           f"step_ms={step_ms:.3f} at length {int(lengths[0])}  "
           f"tokens/s={DECODE_B / step_ms * 1e3:.0f}  "
           f"K3 at that length {k3_step_ms:.4f} ms x {cfg.n_layers} layers = "
-          f"{100 * k3_step_ms * cfg.n_layers / step_ms:.1f} % of a step  "
+          f"{100 * k3_step_ms * cfg.n_layers / step_ms:.1f} % of a step "
+          f"({step_split.split_blocks} split blocks, {step_split.working} "
+          f"holding keys)  "
           f"card: {smi}", flush=True)
     # where the device time goes (torch.profiler): the kernels' device
     # time over the profiled wall time (a lower bound of the busy share,
@@ -498,11 +518,11 @@ def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
     o, k2_run = k2.prepare(q, k, v, **run)
     blocks = k2_run()
     attn_close(o, want, f"K2 at the {tag} prefill shape, timed launch")
-    ms = bench.event_ms(k2_run, flush)
-    plain_ms = bench.event_ms(
+    ms = bench.device_ms(k2_run, flush)
+    plain_ms = bench.device_ms(
         lambda: k2.flash_attention_plain(q, k, v, **run), flush, runs=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = bench.event_ms(
+    lib_ms = bench.device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True), flush)
     flops, nbytes = sb.attention_work(q, k, v, causal=True, window=None,
@@ -511,7 +531,8 @@ def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
                             sb.bf16_peak(torch.cuda.get_device_name(q.device)),
                             rate)
     print(f"K2 ({tag}: B={B} S={S} H={H} KVH={KVH} D={D} causal "
-          f"{str(q.dtype).replace('torch.', '')}): ms={ms:.4f}  "
+          f"{str(q.dtype).replace('torch.', '')}): ms={ms:.4f} (the earlier "
+          f"kernel, with its launch: {EARLIER_MS['K2', tag]:.4f})  "
           f"plain_ms={plain_ms:.3f}  sdpa_ms={lib_ms:.4f}  "
           f"flops={flops:.3e} bytes={nbytes}  bound_ms={bound:.4f} ({by})  "
           f"{flops / ms / 1e9:.1f} TFLOP/s  "
@@ -547,31 +568,58 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
     err, rel = attn_close(k3.flash_decode(q, kc, vc, lengths), want,
                           f"K3 at a full {tag} cache")
     o, k3_run = k3.prepare(q, kc, vc, lengths, window=None, scale=D ** -0.5)
-    blocks = "+".join(map(str, k3_run()))  # split kernel + combine
+    res = k3_run()
+    torch.cuda.synchronize()
+    blocks = f"{res.split_blocks}+{res.combine_blocks}"  # split + combine
     attn_close(o, want, f"K3 at a full {tag} cache, timed launch")
-    ms = bench.event_ms(k3_run, flush)
-    plain_ms = bench.event_ms(
+    ms = bench.device_ms(k3_run, flush)
+    plain_ms = bench.device_ms(
         lambda: k3.flash_decode_plain(q, kc, vc, lengths, window=None,
                                       scale=D ** -0.5), flush)
     qt = q[:, :, None]
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-    lib_ms = bench.event_ms(
+    lib_ms = bench.device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
         flush)
+    del kt, vt
     flops, nbytes = sb.decode_work(q, kc, vc, lengths, window=None)
-    bound, by = sb.bound_ms(flops, nbytes,
-                            sb.bf16_peak(torch.cuda.get_device_name(dev)),
-                            rate)
+    peak = sb.bf16_peak(torch.cuda.get_device_name(dev))
+    bound, by = sb.bound_ms(flops, nbytes, peak, rate)
     print(f"K3 ({tag}: B={B} H={H} KVH={KVH} D={D} S=lengths={MAX_SEQ} "
           f"{str(dt).replace('torch.', '')} cache, blocks={blocks} "
-          f"split+combine): ms={ms:.4f}  plain_ms={plain_ms:.4f}  "
+          f"split+combine, {res.working} split blocks holding keys): "
+          f"ms={ms:.4f} (the earlier kernel, with its launch: "
+          f"{EARLIER_MS['K3', tag]:.4f})  "
+          f"plain_ms={plain_ms:.4f}  "
           f"sdpa_ms={lib_ms:.4f}  bytes={nbytes}  bound_ms={bound:.4f} "
           f"({by})  {nbytes / ms / 1e6:.1f} GB/s  max_abs_err={err:.3e}  "
           f"rel_l2_err={rel:.3e}  card: {smi}", flush=True)
+    # the main path's shape: lengths 31 of the same cache
+    short = torch.full((B,), DECODE_PROMPT + DECODE_STEPS - 1,
+                       dtype=torch.int32, device=dev)
+    want = k3.flash_decode_plain(q, kc, vc, short, window=None,
+                                 scale=D ** -0.5)
+    o, k3_short = k3.prepare(q, kc, vc, short, window=None, scale=D ** -0.5)
+    res = k3_short()
+    torch.cuda.synchronize()
+    short_err = attn_close(o, want, f"K3 at {tag} lengths {int(short[0])} "
+                           f"of {MAX_SEQ}, timed launch")
+    short_ms = bench.device_ms(k3_short, flush)
+    flops, nbytes = sb.decode_work(q, kc, vc, short, window=None)
+    short_bound, short_by = sb.bound_ms(flops, nbytes, peak, rate)
+    print(f"K3 ({tag} at the main path's lengths {int(short[0])} of "
+          f"{MAX_SEQ}): ms={short_ms:.4f}  split blocks launched="
+          f"{res.split_blocks} holding keys={res.working} (+"
+          f"{res.combine_blocks} combine)  bytes={nbytes}  "
+          f"bound_ms={short_bound:.6f} ({short_by})  "
+          f"max_abs_err={short_err[0]:.3e}  rel_l2_err={short_err[1]:.3e}  "
+          f"card: {smi}", flush=True)
     return {"route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-            "rel_l2_err": rel, "blocks": blocks}
+            "rel_l2_err": rel, "blocks": blocks,
+            "short_ms": short_ms, "short_bound_ms": short_bound,
+            "short_blocks": res.split_blocks, "short_working": res.working}
 
 
 def ssd_conformance(dev) -> dict:
@@ -869,8 +917,8 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     blocks = k4_run()
     k4_err, k4_rel = ssd_close(y, want, f"K4 at the {arch} prefill shape, "
                                f"timed launch", SSD_CALL_TOL)
-    k4_ms = bench.event_ms(k4_run, flush)
-    k4_plain_ms = bench.event_ms(
+    k4_ms = bench.device_ms(k4_run, flush)
+    k4_plain_ms = bench.device_ms(
         lambda: ssd_scan(x, dtv, A, Bm, Cm, D, chunk=L), flush, runs=5)
     flops, nbytes = sb.ssd_work(x, dtv, Bm, Cm, D, L)
     k4_bound, k4_by = sb.bound_ms(flops, nbytes, sb.f32_peak(name), rate)
@@ -950,6 +998,11 @@ def main() -> int:
     print(f"build: {len(calls)} stencil calls + flash attention + flash "
           f"decode + ssd, {built} sources compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    hmma = build.sass_count(k2.job(), "HMMA")
+    print(f"build: K2's library has {hmma} HMMA (tensor-core) instructions "
+          f"(cuobjdump -sass {build.library_path(k2.job())})", flush=True)
+    if hmma == 0:
+        raise AssertionError("K2's library has no tensor-core instruction")
 
     # 3. conformance: "cuda" against "interp_torch", both on the card
     for n, b in sorted(ALL_PROGRAMS.items()):
@@ -994,6 +1047,9 @@ def main() -> int:
         entries += serve_ssm(arch, layers, dev, flush, rate, smi)
 
     # 9. the kernels line, the card, and the result
+    for e in entries:
+        if e["source"] == K2_SOURCE:
+            e["hmma"] = hmma
     print(json.dumps({"kernels": entries}))
     print(bench.smi_line())
     print(json.dumps({"ok": True, "device": {

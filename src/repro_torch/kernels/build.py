@@ -72,6 +72,21 @@ def digest(job: Job) -> str:
     return h.hexdigest()[:32]
 
 
+def library_path(job: Job) -> pathlib.Path:
+    """Where the library of ``job`` is (or will be) built."""
+    return BUILD_DIR / f"{digest(job)}.so"
+
+
+def sass_count(job: Job, opcode: str) -> int:
+    """How many lines of ``cuobjdump -sass`` (from the toolkit of
+    :func:`nvcc_path`) on the built library of ``job`` name ``opcode``
+    (``grep -c``): ``HMMA`` counts the tensor-core products."""
+    cuobjdump = pathlib.Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library_path(job))],
+                          check=True, capture_output=True, text=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def _tmp_so(key: str) -> pathlib.Path:
     return BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
 

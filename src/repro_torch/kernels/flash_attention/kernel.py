@@ -3,9 +3,14 @@
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:flash_attention_fwd``.
 The CUDA C++ source is ``csrc/flash_attention.cu`` (its header comment
-gives the design and what bounds it); it is built with ``nvcc`` for
-``sm_90a`` at first use (:mod:`repro_torch.kernels.build`), loaded with
-``ctypes`` and launched on PyTorch's current stream.
+gives the design and what bounds it): bf16 inputs go to a tensor-core
+kernel (``mma.sync``, P split in three bf16 terms so that P V keeps
+the float32 function's accuracy), float32 inputs to a scalar float32 kernel.
+It is built with ``nvcc`` for ``sm_90a`` at first use
+(:mod:`repro_torch.kernels.build`), loaded with ``ctypes`` and launched
+on PyTorch's current stream.  The bf16 kernel copies rows with 16-byte
+``cp.async``: q, k, v and o must have 16-byte aligned bases and
+(batch, seq, head) strides, or the wrapper raises.
 
 :func:`flash_attention_fwd` launches the kernel for CUDA tensors and
 raises on anything it does not take; for CPU tensors it runs
@@ -108,7 +113,8 @@ def launch(lib, q, k, v, o, *, causal: bool, window: int | None,
            q_offset: int, scale: float, stream) -> int:
     """One launch of the kernel writing ``o`` on ``stream`` (a
     ``cudaStream_t`` as an int).  Returns the blocks it launched; raises
-    when refused."""
+    when refused (``ValueError`` for bf16 rows that are not 16-byte
+    aligned, which the library checks)."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     ints = [_DTYPES[q.dtype], B, Sq, Skv, H, KVH, D]
@@ -120,6 +126,8 @@ def launch(lib, q, k, v, o, *, causal: bool, window: int | None,
     grids = (ctypes.c_longlong * 1)()
     rc = lib.fa_forward(ptrs, (ctypes.c_longlong * len(ints))(*ints),
                         scale, stream, grids)
+    if rc == -2:
+        raise ValueError(f"flash attention: {lib.fa_error_string(rc).decode()}")
     if rc != 0:
         raise RuntimeError(f"flash attention launch failed: "
                            f"{lib.fa_error_string(rc).decode()} ({rc})")

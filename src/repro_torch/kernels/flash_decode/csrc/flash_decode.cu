@@ -7,35 +7,48 @@
 // sliding window.  The KV axis is the reduced dimension of the HFAV
 // reduction triple (identity, online combine, normalise).
 //
+// What bounds it.  Each step reads the valid part of K and V once and
+// does ~4 flops per cached element, far below the card's ~295 flops per
+// byte in bf16, so device-memory bytes bound it: the design's one aim is
+// to keep enough 16-byte loads in flight to stream the valid keys at the
+// memory rate, whatever the lengths.
+//
 // Decomposition (flash-decoding).  The TPU kernel walks the whole cache
 // of one (batch, KV head) in order on one core: grid (B, KVH, nkv).  On
 // this card B * KVH blocks would leave most of the 132 SMs idle (32 at
-// qwen3-0.6b's B = 4, KVH = 8), so the KV axis is also split across
-// blocks: block (b, kvh, split) takes keys [split * chunk, (split + 1) *
-// chunk) of the valid range, with the `group` query heads of one KV head
-// together, as in the TPU kernel, and leaves one partial (m, l, acc) per
-// query head.  A second, small kernel combines the partials of each
-// (b, h) in split order:  M = max m_s,  out = sum e^(m_s - M) acc_s /
-// max(sum e^(m_s - M) l_s, 1e-30).  A split that holds no valid key
-// (past lengths[b], or before the window) exits at once and leaves the
-// identity (m = -1e30, l = 0, acc = 0), which the combine weighs by
-// exp(-1e30 - M) = 0.
+// qwen3-0.6b's B = 4, KVH = 8), so the KV axis is split across nsplit
+// blocks as well.  The host picks nsplit from the SM count and B * KVH
+// alone (about two blocks an SM, at most one split per 64 cache
+// positions), so a step reads nothing back from the device.  Block
+// (b, kvh, split) finds its sequence's valid range [max(0, len - window),
+// min(len, S)) on the device, cuts it into nsplit pieces of a multiple of
+// 64 keys, and takes piece `split`, with the `group` query heads of one
+// KV head together, as in the TPU kernel; it leaves one partial
+// (m, l, acc) per query head and the count of keys it held.  A second,
+// small kernel combines the partials of each (b, h) in split order:
+// M = max m_s, out = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s,
+// 1e-30).  A split with no key (the valid range is short, or empty)
+// exits at once and leaves the identity (m = -1e30, l = 0, acc = 0),
+// which the combine weighs by exp(-1e30 - M) = 0: at the main path's
+// lengths (31 of a 4096-position cache) one split of each (b, kvh) works.
 //
-// Inside a block the chunk's scores fit in shared memory, so the softmax
-// of one chunk is exact (one max, one sum) and needs no online rescale:
-// K is staged through shared memory 64 keys at a time (coalesced loads,
-// odd-padded rows), each thread takes (head, key) dot products, tree
-// reductions give each head's max and sum, then thread d sums p * v over
-// the chunk for column d of every head of the group, reading V once.
+// Streaming.  A key row of D values is D / E 16-byte chunks (E = 8 bf16
+// or 4 float32); LPR lanes (the chunk count rounded up to a power of two)
+// take one row, chunk c on lane c, so a warp loads 32 / LPR whole rows
+// in one instruction with neighbouring lanes on neighbouring addresses.
+// Each lane keeps U rows of K and of V in flight in registers (an
+// unrolled register pipeline, no shared memory): it issues all 2U 16-byte
+// loads, then takes the U dot products with the group's query heads,
+// which live in its registers (E columns each, scaled), and reduces them
+// across the LPR lanes of the row with __shfl_xor_sync.  Every lane then
+// keeps an online (m, l, acc) per head over the rows it saw, acc being
+// its own E columns.  At the end the row groups of a warp are folded by
+// __shfl_xor_sync and the 4 warps' partials through shared memory.
 //
 // Layout.  q is read from (B, H, D) and the caches in place from
-// (B, S, KVH, D) through their strides; the TPU kernel's transpose of the
-// caches to (B, KVH, S, D) copies the whole cache on every call.
-//
-// What bounds it.  Each step reads the valid part of K and V once and
-// does ~4 flops per cached element, far below the card's ~295 flops per
-// byte in bf16, so device-memory bytes bound it.  Splitting the KV axis
-// is what gives it enough blocks to stream at the memory rate.
+// (B, S, KVH, D) through their strides (16-byte aligned, which
+// fd_decode checks); the TPU kernel's transpose of the caches to
+// (B, KVH, S, D) copies the whole cache on every call.
 //
 // Types.  q may be float32 or bf16, the caches float32 or bf16.  When q is
 // bf16 and the caches float32, each cached value is rounded to bf16 on
@@ -54,7 +67,8 @@ extern __shared__ float hfav_smem[];
 namespace fd {
 
 constexpr int THREADS = 128;
-constexpr int KT = 64;  // keys staged in shared memory at a time
+constexpr int WARPS = THREADS / 32;
+constexpr int PIECE = 64;  // a split's keys are a multiple of this
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -65,60 +79,79 @@ struct Params {
   void* o;
   float* part_ml;   // (B, H, nsplit, 2): m, l
   float* part_acc;  // (B, H, nsplit, D)
-  long long B, S, H, KVH, D, chunk, nsplit, window;  // window <= 0: none
+  int* part_n;      // (B, KVH, nsplit): keys each split block held
+  long long B, S, H, KVH, D, nsplit, window;  // window <= 0: none
   long long qs[2], ks[3], vs[3], os[2];
+  int q_bf16;  // q's dtype is bf16: float32 cached values round to bf16
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
-// A cached value as the attention sees it: widened to float32, after
-// rounding to bf16 when the query (the compute dtype) is bf16.
-template <typename TQ, typename TC>
-__device__ __forceinline__ float cached(TC x) {
-  if constexpr (sizeof(TQ) == 2 && sizeof(TC) == 4)
-    return __bfloat162float(__float2bfloat16(x));
-  else
-    return to_f(x);
+// The E values of a 16-byte chunk as float32.
+__device__ __forceinline__ void unpack(const uint4& c, float (&x)[8]) {
+  const unsigned w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& c, float (&x)[4]) {
+  x[0] = __uint_as_float(c.x);
+  x[1] = __uint_as_float(c.y);
+  x[2] = __uint_as_float(c.z);
+  x[3] = __uint_as_float(c.w);
 }
 
-inline long long smem_floats(long long group, long long D, long long chunk) {
-  return group * D + KT * (D + 1) + group * chunk + 2 * THREADS;
+__device__ __forceinline__ float q_value(const Params& p, long long i) {
+  return p.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[i])
+                  : static_cast<const float*>(p.q)[i];
 }
 
-// MG: the group size rounded up to a power of two (the head slots of the
-// per-thread accumulators).
-template <typename TQ, typename TC, int MG>
+// TC: the caches' element type; MG: the group size rounded up to a power
+// of two (the head slots of the per-lane registers).
+template <typename TC, int D, int MG>
 __global__ void __launch_bounds__(THREADS) split_kernel(const Params p) {
-  // 32-bit index arithmetic inside the block (64-bit division is slow)
-  const int G = static_cast<int>(p.H / p.KVH), D = static_cast<int>(p.D);
-  float* const Qs = hfav_smem;         // [G][D], scaled
-  float* const Ks = Qs + G * D;        // [KT][D + 1]
-  float* const Sc = Ks + KT * (D + 1);  // [G][chunk] scores, then p
-  float* const Red = Sc + G * p.chunk;  // [THREADS] reductions
-  float* const Red2 = Red + THREADS;
+  constexpr int E = 16 / static_cast<int>(sizeof(TC));  // values a chunk
+  constexpr int NCH = D / E;                            // chunks a row
+  constexpr int LPR = NCH <= 2    ? 2
+                      : NCH <= 4  ? 4
+                      : NCH <= 8  ? 8
+                      : NCH <= 16 ? 16
+                                  : 32;  // lanes a row
+  constexpr int RPW = 32 / LPR;          // rows a warp loads at once
+  constexpr int U = MG <= 2 ? 8 : MG <= 4 ? 4 : 2;  // rows a lane in flight
+  constexpr int STEP = WARPS * RPW * U;              // rows a block pass
+  static_assert(NCH <= 32, "a row is at most 32 chunks");
 
-  const int tid = threadIdx.x;
+  const int G = static_cast<int>(p.H / p.KVH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c = lane % LPR, rg = lane / LPR;  // chunk, row group
+  const bool on = c < NCH;                    // this lane loads a chunk
   long long bid = blockIdx.x;
   const long long split = bid % p.nsplit;
   bid /= p.nsplit;
   const long long kvh = bid % p.KVH, b = bid / p.KVH;
+
+  // this split's piece of the valid range
   const long long len = p.lengths[b];
   const long long end = len < p.S ? len : p.S;  // a length past the cache
-  long long lo = split * p.chunk;               // counts the whole cache
-  const long long hi = lo + p.chunk < end ? lo + p.chunk : end;
-  if (p.window > 0 && lo < len - p.window) lo = len - p.window;
-  const int n = static_cast<int>(hi - lo);  // valid keys of this split
+  long long start = 0;
+  if (p.window > 0 && len - p.window > 0) start = len - p.window;
+  const long long valid = end - start;
+  const long long piece =
+      valid > 0 ? (valid + p.nsplit - 1) / p.nsplit : 0;
+  const long long per = (piece + PIECE - 1) / PIECE * PIECE;
+  const long long lo = start + split * per;
+  const long long hi = lo + per < end ? lo + per : end;
+  const int n = hi > lo ? static_cast<int>(hi - lo) : 0;
   const long long part0 = (b * p.H + kvh * G) * p.nsplit + split;
+  if (tid == 0) p.part_n[(b * p.KVH + kvh) * p.nsplit + split] = n;
 
-  if (n <= 0) {  // the identity of the reduction triple
+  if (n == 0) {  // the identity of the reduction triple
     for (int g = tid; g < G; g += THREADS) {
       p.part_ml[(part0 + g * p.nsplit) * 2] = NEG_INF;
       p.part_ml[(part0 + g * p.nsplit) * 2 + 1] = 0.f;
@@ -128,79 +161,147 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params p) {
     return;
   }
 
-  const TQ* const q = static_cast<const TQ*>(p.q) + b * p.qs[0];
+  // the group's query heads, this lane's E columns, scaled
+  float qr[MG][E];
+#pragma unroll
+  for (int g = 0; g < MG; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qr[g][e] = g < G && on ? q_value(p, b * p.qs[0] +
+                                              (kvh * G + g) * p.qs[1] +
+                                              c * E + e) *
+                                   p.scale
+                             : 0.f;
+  const bool to_bf16 = p.q_bf16 && sizeof(TC) == 4;
+  const TC* const k = static_cast<const TC*>(p.k) + b * p.ks[0] +
+                      kvh * p.ks[2] + lo * p.ks[1] + c * E;
+  const TC* const v = static_cast<const TC*>(p.v) + b * p.vs[0] +
+                      kvh * p.vs[2] + lo * p.vs[1] + c * E;
+
+  float m[MG], l[MG], acc[MG][E];
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  // pass r0 takes rows r0 + (u WARPS + warp) RPW + rg, u < U
+  for (int r0 = 0; r0 < n; r0 += STEP) {
+    uint4 kr[U], vr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = r0 + (u * WARPS + warp) * RPW + rg;
+      if (row < n && on) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(k + row * p.ks[1]));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(v + row * p.vs[1]));
+      } else {
+        kr[u] = vr[u] = uint4{0u, 0u, 0u, 0u};
+      }
+    }
+    float s[U][MG];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kv[E];
+      unpack(kr[u], kv);
+      if (to_bf16) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kv[e] = bf16_round(kv[e]);
+      }
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d += qr[g][e] * kv[e];
+#pragma unroll
+        for (int x = 1; x < LPR; x *= 2) d += __shfl_xor_sync(0xffffffffu, d, x);
+        s[u][g] = d;
+      }
+    }
+    // online combine over the U rows: new max, rescale, p = e^(s - m)
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (r0 + (u * WARPS + warp) * RPW + rg < n) mx = fmaxf(mx, s[u][g]);
+      const float alpha = expf(m[g] - mx);
+      m[g] = mx;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r0 + (u * WARPS + warp) * RPW + rg >= n) continue;
+      float vv[E];
+      unpack(vr[u], vv);
+      if (to_bf16) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) vv[e] = bf16_round(vv[e]);
+      }
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        const float pe = expf(s[u][g] - m[g]);
+        l[g] += pe;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] += pe * vv[e];
+      }
+    }
+  }
+
+  // fold the warp's row groups (lanes c + LPR rg), then the warps
+#pragma unroll
+  for (int x = LPR; x < 32; x *= 2)
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], x);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], x);
+      const float mn = fmaxf(m[g], mo);
+      const float a = expf(m[g] - mn), bo = expf(mo - mn);
+      m[g] = mn;
+      l[g] = l[g] * a + lo_ * bo;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[g][e] = acc[g][e] * a +
+                    __shfl_xor_sync(0xffffffffu, acc[g][e], x) * bo;
+    }
+  float* const Wm = hfav_smem;            // [WARPS][G]
+  float* const Wl = Wm + WARPS * G;       // [WARPS][G]
+  float* const Wacc = Wl + WARPS * G;     // [WARPS][G][D]
+  if (rg == 0 && on) {
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
+      if (g >= G) break;
+      if (c == 0) {
+        Wm[warp * G + g] = m[g];
+        Wl[warp * G + g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        Wacc[(warp * G + g) * D + c * E + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
   for (int idx = tid; idx < G * D; idx += THREADS) {
     const int g = idx / D, d = idx % D;
-    Qs[idx] = to_f(q[(kvh * G + g) * p.qs[1] + d]) * p.scale;
-  }
-  const TC* const k = static_cast<const TC*>(p.k) + b * p.ks[0] + kvh * p.ks[2];
-  const TC* const v = static_cast<const TC*>(p.v) + b * p.vs[0] + kvh * p.vs[2];
-
-  // scores of every (head, key) of the chunk
-  for (int t0 = 0; t0 < n; t0 += KT) {
-    const int nt = n - t0 < KT ? n - t0 : KT;
-    __syncthreads();  // Qs is complete; the last tile's reads are done
-    for (int idx = tid; idx < nt * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
-      Ks[r * (D + 1) + d] = cached<TQ, TC>(k[(lo + t0 + r) * p.ks[1] + d]);
-    }
-    __syncthreads();
-    for (int pair = tid; pair < G * KT; pair += THREADS) {
-      const int g = pair / KT, r = pair % KT;
-      if (r >= nt) continue;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += Qs[g * D + d] * Ks[r * (D + 1) + d];
-      Sc[g * p.chunk + t0 + r] = s;
-    }
-  }
-  __syncthreads();
-
-  // each head's max and sum over the chunk: THREADS / MG threads a head
-  constexpr int TPG = THREADS / MG;
-  const int g = tid / TPG, lane = tid % TPG;
-  float mx = NEG_INF;
-  if (g < G)
-    for (int j = lane; j < n; j += TPG) mx = fmaxf(mx, Sc[g * p.chunk + j]);
-  Red[tid] = mx;
-  __syncthreads();
-  for (int s = TPG / 2; s > 0; s /= 2) {
-    if (lane < s) Red[tid] = fmaxf(Red[tid], Red[tid + s]);
-    __syncthreads();
-  }
-  const float m = Red[g * TPG];
-  float sum = 0.f;
-  if (g < G)
-    for (int j = lane; j < n; j += TPG) {
-      const float e = expf(Sc[g * p.chunk + j] - m);
-      Sc[g * p.chunk + j] = e;
-      sum += e;
-    }
-  Red2[tid] = sum;
-  __syncthreads();
-  for (int s = TPG / 2; s > 0; s /= 2) {
-    if (lane < s) Red2[tid] += Red2[tid + s];
-    __syncthreads();
-  }
-  if (g < G && lane == 0) {
-    p.part_ml[(part0 + g * p.nsplit) * 2] = m;
-    p.part_ml[(part0 + g * p.nsplit) * 2 + 1] = Red2[tid];
-  }
-
-  // acc[g][d] = sum_j p[g][j] * v[j][d], one column per thread
-  for (int d = tid; d < D; d += THREADS) {
-    float acc[MG];
+    float M = NEG_INF;
 #pragma unroll
-    for (int gg = 0; gg < MG; ++gg) acc[gg] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      const float vv = cached<TQ, TC>(v[(lo + j) * p.vs[1] + d]);
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, Wm[w * G + g]);
+    float L = 0.f, A = 0.f;
 #pragma unroll
-      for (int gg = 0; gg < MG; ++gg)
-        if (gg < G) acc[gg] += Sc[gg * p.chunk + j] * vv;
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(Wm[w * G + g] - M);
+      L += wt * Wl[w * G + g];
+      A += wt * Wacc[(w * G + g) * D + d];
     }
-#pragma unroll
-    for (int gg = 0; gg < MG; ++gg)
-      if (gg < G) p.part_acc[(part0 + gg * p.nsplit) * D + d] = acc[gg];
+    const long long part = part0 + g * p.nsplit;
+    p.part_acc[part * D + d] = A;
+    if (d == 0) {
+      p.part_ml[part * 2] = M;
+      p.part_ml[part * 2 + 1] = L;
+    }
   }
 }
 
@@ -218,40 +319,45 @@ __global__ void __launch_bounds__(THREADS) combine_kernel(const Params p) {
       L += w * ml[2 * s + 1];
       A += w * acc[s * p.D + d];
     }
-    store(static_cast<TQ*>(p.o) + b * p.os[0] + h * p.os[1] + d,
-          A / fmaxf(L, 1e-30f));
+    const float out = A / fmaxf(L, 1e-30f);
+    TQ* const o = static_cast<TQ*>(p.o) + b * p.os[0] + h * p.os[1] + d;
+    if constexpr (sizeof(TQ) == 2)
+      *o = __float2bfloat16(out);
+    else
+      *o = out;
   }
 }
 
-template <typename TQ, typename TC, int MG>
+template <typename TC, int D, int MG>
 int launch(const Params& p, void* stream, long long* grids) {
   const long long nsplit_blocks = p.B * p.KVH * p.nsplit;
   const long long smem =
-      smem_floats(p.H / p.KVH, p.D, p.chunk) * (long long)sizeof(float);
+      WARPS * (p.H / p.KVH) * (D + 2) * (long long)sizeof(float);
+  auto combine = p.q_bf16 ? combine_kernel<__nv_bfloat16> : combine_kernel<float>;
   grids[0] = grids[1] = 0;
   if (p.B * p.H == 0) return 0;
 #ifdef HFAV_EMULATE
   (void)stream;
-  int e = emulate_launch(split_kernel<TQ, TC, MG>, p, nsplit_blocks, THREADS,
+  int e = emulate_launch(split_kernel<TC, D, MG>, p, nsplit_blocks, THREADS,
                          smem);
   if (e) return e;
   grids[0] = nsplit_blocks;
-  e = emulate_launch(combine_kernel<TQ>, p, p.B * p.H, THREADS, 0);
+  e = emulate_launch(combine, p, p.B * p.H, THREADS, 0);
   if (e) return e;
   grids[1] = p.B * p.H;
   return 0;
 #else
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaFuncSetAttribute(
-      split_kernel<TQ, TC, MG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      split_kernel<TC, D, MG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  split_kernel<TQ, TC, MG><<<static_cast<unsigned>(nsplit_blocks), THREADS,
-                             static_cast<size_t>(smem), st>>>(p);
+  split_kernel<TC, D, MG><<<static_cast<unsigned>(nsplit_blocks), THREADS,
+                            static_cast<size_t>(smem), st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   grids[0] = nsplit_blocks;
-  combine_kernel<TQ><<<static_cast<unsigned>(p.B * p.H), THREADS, 0, st>>>(p);
+  combine<<<static_cast<unsigned>(p.B * p.H), THREADS, 0, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   grids[1] = p.B * p.H;
@@ -259,25 +365,38 @@ int launch(const Params& p, void* stream, long long* grids) {
 #endif
 }
 
-template <typename TQ, typename TC>
+template <typename TC, int D>
 int dispatch_group(const Params& p, void* stream, long long* grids) {
   const long long G = p.H / p.KVH;
-  if (G <= 1) return launch<TQ, TC, 1>(p, stream, grids);
-  if (G <= 2) return launch<TQ, TC, 2>(p, stream, grids);
-  if (G <= 4) return launch<TQ, TC, 4>(p, stream, grids);
-  if (G <= 8) return launch<TQ, TC, 8>(p, stream, grids);
-  if (G <= 16) return launch<TQ, TC, 16>(p, stream, grids);
+  if (G <= 1) return launch<TC, D, 1>(p, stream, grids);
+  if (G <= 2) return launch<TC, D, 2>(p, stream, grids);
+  if (G <= 4) return launch<TC, D, 4>(p, stream, grids);
+  if (G <= 8) return launch<TC, D, 8>(p, stream, grids);
+  if (G <= 16) return launch<TC, D, 16>(p, stream, grids);
   return -1;
+}
+
+template <typename TC>
+int dispatch_d(const Params& p, void* stream, long long* grids) {
+  switch (p.D) {
+    case 16: return dispatch_group<TC, 16>(p, stream, grids);
+    case 32: return dispatch_group<TC, 32>(p, stream, grids);
+    case 64: return dispatch_group<TC, 64>(p, stream, grids);
+    case 80: return dispatch_group<TC, 80>(p, stream, grids);
+    case 128: return dispatch_group<TC, 128>(p, stream, grids);
+    default: return -1;
+  }
 }
 
 }  // namespace fd
 
-// ptrs: q, k_cache, v_cache, lengths (int32), o, part_ml, part_acc.
-// ints: q dtype, cache dtype (0 float32, 1 bfloat16), B, S, H, KVH, D,
-// chunk, nsplit, window (<= 0: none), the (batch, head) strides of q and
-// o, the (batch, seq, head) strides of k and v, in elements.  grids
-// receives the blocks launched: split kernel, combine kernel.  Returns 0,
-// a CUDA error code, or -1 for a group size or dtype it was not built for.
+// ptrs: q, k_cache, v_cache, lengths (int32), o, part_ml, part_acc,
+// part_n.  ints: q dtype, cache dtype (0 float32, 1 bfloat16), B, S, H,
+// KVH, D, nsplit, window (<= 0: none), the (batch, head) strides of q
+// and o, the (batch, seq, head) strides of k and v, in elements.  grids
+// receives the blocks launched: split kernel, combine kernel.  Returns
+// 0, a CUDA error code, -1 for a group size, head dim or dtype it was not
+// built for, or -2 for cache rows that are not 16-byte aligned.
 extern "C" int fd_decode(void* const* ptrs, const long long* ints,
                          float scale, void* stream, long long* grids) {
   fd::Params p;
@@ -288,36 +407,41 @@ extern "C" int fd_decode(void* const* ptrs, const long long* ints,
   p.o = ptrs[4];
   p.part_ml = static_cast<float*>(ptrs[5]);
   p.part_acc = static_cast<float*>(ptrs[6]);
+  p.part_n = static_cast<int*>(ptrs[7]);
   p.B = ints[2];
   p.S = ints[3];
   p.H = ints[4];
   p.KVH = ints[5];
   p.D = ints[6];
-  p.chunk = ints[7];
-  p.nsplit = ints[8];
-  p.window = ints[9];
-  p.qs[0] = ints[10];
-  p.qs[1] = ints[11];
-  p.os[0] = ints[12];
-  p.os[1] = ints[13];
+  p.nsplit = ints[7];
+  p.window = ints[8];
+  p.qs[0] = ints[9];
+  p.qs[1] = ints[10];
+  p.os[0] = ints[11];
+  p.os[1] = ints[12];
   for (int a = 0; a < 3; ++a) {
-    p.ks[a] = ints[14 + a];
-    p.vs[a] = ints[17 + a];
+    p.ks[a] = ints[13 + a];
+    p.vs[a] = ints[16 + a];
   }
   p.scale = scale;
+  grids[0] = grids[1] = 0;
   const long long tq = ints[0], tc = ints[1];
-  if (tq == 0 && tc == 0)
-    return fd::dispatch_group<float, float>(p, stream, grids);
-  if (tq == 0 && tc == 1)
-    return fd::dispatch_group<float, __nv_bfloat16>(p, stream, grids);
-  if (tq == 1 && tc == 0)
-    return fd::dispatch_group<__nv_bfloat16, float>(p, stream, grids);
-  if (tq == 1 && tc == 1)
-    return fd::dispatch_group<__nv_bfloat16, __nv_bfloat16>(p, stream, grids);
-  return -1;
+  if ((tq != 0 && tq != 1) || (tc != 0 && tc != 1) || p.nsplit < 1) return -1;
+  p.q_bf16 = static_cast<int>(tq);
+  const long long step = tc ? 8 : 4;  // elements in 16 bytes
+  const void* bases[2] = {p.k, p.v};
+  for (const void* ptr : bases)
+    if (reinterpret_cast<unsigned long long>(ptr) % 16) return -2;
+  for (int a = 0; a < 3; ++a)
+    if (p.ks[a] % step || p.vs[a] % step) return -2;
+  if (tc == 0) return fd::dispatch_d<float>(p, stream, grids);
+  return fd::dispatch_d<__nv_bfloat16>(p, stream, grids);
 }
 
 extern "C" const char* fd_error_string(int e) {
-  if (e == -1) return "group size or dtype not built";
+  if (e == -1) return "group size, head dim or dtype not built";
+  if (e == -2)
+    return "cache rows are read 16 bytes at a time: the caches need "
+           "16-byte aligned bases and (batch, seq, head) strides";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

@@ -3,11 +3,15 @@
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_decode/kernel.py:flash_decode``.  The CUDA C++
 source is ``csrc/flash_decode.cu`` (its header comment gives the design
-and what bounds it): a split kernel over (batch, KV head, KV chunk)
-blocks and a combine kernel over (batch, head), launched together by
-one call.  It is built with ``nvcc`` for ``sm_90a`` at first use
-(:mod:`repro_torch.kernels.build`), loaded with ``ctypes`` and launched
-on PyTorch's current stream.
+and what bounds it): a split kernel over (batch, KV head, split) blocks,
+each taking its share of its sequence's valid cache range, and a combine
+kernel over (batch, head), launched together by one call.  The split
+count comes from the SM count and ``B * KVH`` alone (:func:`n_splits`),
+so a call reads nothing back from the device.  It is built with
+``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`),
+loaded with ``ctypes`` and launched on PyTorch's current stream.  The
+caches are read 16 bytes at a time: their bases and (batch, seq, head)
+strides must be 16-byte aligned, or the wrapper raises.
 
 :func:`flash_decode` launches the kernel for CUDA tensors and raises on
 anything it does not take; for CPU tensors it runs
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +36,10 @@ from .. import build
 from ..flash_attention.kernel import HEAD_DIMS
 
 NEG_INF = -1e30
-#: Cache positions one block of the split kernel takes.
-CHUNK = 256
+#: A split block's keys are a multiple of this many cache positions.
+PIECE = 64
+#: The H100's SM count, the default of :func:`n_splits` off the card.
+SMS = 132
 #: Most query heads one KV head may serve.
 MAX_GROUP = 16
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -42,6 +49,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Calls of :func:`flash_decode` that launched the kernel.
 launches = 0
 _LIB: list[ctypes.CDLL] = []
+_SMS: dict[int, int] = {}  # SM count by device index
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -111,54 +119,85 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, window: int | None,
     return o.reshape(B, H, D).to(q.dtype)
 
 
-def n_splits(S: int, chunk: int) -> int:
-    return -(-S // chunk)
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
-def launch(lib, q, k_cache, v_cache, lengths, o, part_ml, part_acc, *,
-           window: int | None, scale: float, chunk: int,
-           stream) -> tuple[int, int]:
+def n_splits(B: int, KVH: int, S: int, sms: int = SMS) -> int:
+    """Split blocks per (batch, KV head): enough for about two blocks on
+    each of ``sms`` SMs, at most one per ``PIECE`` cache positions."""
+    return max(1, min(-(-2 * sms // max(B * KVH, 1)), -(-S // PIECE)))
+
+
+class Launch(NamedTuple):
+    """What one launch of the kernel pair did: the split and combine
+    blocks it launched, and ``keys``, the (B, KVH, nsplit) int32 tensor
+    of the keys each split block held, which the split kernel writes."""
+    split_blocks: int
+    combine_blocks: int
+    keys: torch.Tensor
+
+    @property
+    def working(self) -> int:
+        """The split blocks that held a key (reads ``keys``: on the card
+        this waits for the launch)."""
+        return int((self.keys > 0).sum())
+
+
+def launch(lib, q, k_cache, v_cache, lengths, o, part_ml, part_acc, part_n,
+           *, window: int | None, scale: float, stream) -> Launch:
     """One launch of the kernel pair writing ``o`` on ``stream`` (a
-    ``cudaStream_t`` as an int), ``chunk`` cache positions to a block of
-    the split kernel.  Returns the blocks it launched (split kernel,
-    combine kernel); raises when refused."""
+    ``cudaStream_t`` as an int), with the split count of the partials
+    (:func:`buffers`).  Raises when refused (``ValueError`` for cache
+    rows that are not 16-byte aligned, which the library checks)."""
     B, H, D = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
+    nsplit = part_ml.shape[2]
     ints = [_DTYPES[q.dtype], _DTYPES[k_cache.dtype], B, S, H, KVH, D,
-            chunk, n_splits(S, chunk), window or 0,
+            nsplit, window or 0,
             q.stride(0), q.stride(1), o.stride(0), o.stride(1)]
     for t in (k_cache, v_cache):
         ints += [t.stride(0), t.stride(1), t.stride(2)]
-    ptrs = (ctypes.c_void_p * 7)(q.data_ptr(), k_cache.data_ptr(),
+    ptrs = (ctypes.c_void_p * 8)(q.data_ptr(), k_cache.data_ptr(),
                                  v_cache.data_ptr(), lengths.data_ptr(),
                                  o.data_ptr(), part_ml.data_ptr(),
-                                 part_acc.data_ptr())
+                                 part_acc.data_ptr(), part_n.data_ptr())
     grids = (ctypes.c_longlong * 2)()
     rc = lib.fd_decode(ptrs, (ctypes.c_longlong * len(ints))(*ints), scale,
                        stream, grids)
+    if rc == -2:
+        raise ValueError(f"flash decode: {lib.fd_error_string(rc).decode()}")
     if rc != 0:
         raise RuntimeError(f"flash decode launch failed: "
                            f"{lib.fd_error_string(rc).decode()} ({rc})")
-    return grids[0], grids[1]
+    return Launch(grids[0], grids[1], part_n)
 
 
-def buffers(q, S: int, chunk: int = CHUNK):
-    """The output and the per-split partials of one call."""
+def buffers(q, KVH: int, nsplit: int):
+    """The output, the per-split partials (m, l and acc) and the per-split
+    key counts of one call with ``nsplit`` splits."""
     B, H, D = q.shape
-    ns = n_splits(S, chunk)
     return (torch.empty_like(q),
-            torch.empty((B, H, ns, 2), dtype=torch.float32, device=q.device),
-            torch.empty((B, H, ns, D), dtype=torch.float32, device=q.device))
+            torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((B, H, nsplit, D), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((B, KVH, nsplit), dtype=torch.int32,
+                        device=q.device))
 
 
 def prepare(q, k_cache, v_cache, lengths, *, window: int | None,
             scale: float):
     """Check a call on CUDA tensors and allocate its output and partials.
     Returns ``(o, run)``: ``run()`` launches the kernel pair once on the
-    current stream, writing ``o``, and returns the blocks it launched, as
-    :func:`launch` does.  Raises on anything the kernel does not take.
-    :func:`flash_decode` launches through it; a timing loop may call
-    ``run`` alone."""
+    current stream, writing ``o``, and returns its :class:`Launch`.
+    Raises on anything the kernel does not take.  :func:`flash_decode`
+    launches through it; a timing loop may call ``run`` alone."""
     _check(q, k_cache, v_cache, lengths, window)
     tensors = (q, k_cache, v_cache, lengths)
     if not (q.device.type == "cuda"
@@ -178,17 +217,17 @@ def prepare(q, k_cache, v_cache, lengths, *, window: int | None,
     if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("flash decode needs the head dim contiguous")
     lengths = lengths.to(torch.int32).contiguous()
-    o, part_ml, part_acc = buffers(q, k_cache.shape[1])
+    B, S, KVH = k_cache.shape[:3]
+    bufs = buffers(q, KVH, n_splits(B, KVH, S, sm_count(q.device)))
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
-    def run() -> tuple[int, int]:
+    def run() -> Launch:
         with torch.cuda.device(q.device):
-            return launch(lib, q, k_cache, v_cache, lengths, o, part_ml,
-                          part_acc, window=window, scale=scale, chunk=CHUNK,
-                          stream=stream)
+            return launch(lib, q, k_cache, v_cache, lengths, *bufs,
+                          window=window, scale=scale, stream=stream)
 
-    return o, run
+    return bufs[0], run
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,15 +1,28 @@
 // Host emulation of the CUDA constructs the port's kernels use (the
-// stencil kernels of stencil2d.cuh, flash attention and flash decode),
-// so the kernels' index, slot, chunk, tile and ownership logic can be
-// compiled with a host C++ compiler (g++ -std=c++20
-// -DHFAV_EMULATE) and tested on a machine without a GPU.  Blocks run one
-// after another; the threads of a block are host threads that meet at
-// a std::barrier in __syncthreads(), so a missing barrier shows up as a
-// wrong result.  Never used for a GPU build.
+// stencil kernels of stencil2d.cuh, flash attention, flash decode and the
+// SSD scan), so the kernels' index, slot, chunk, tile, fragment and
+// ownership logic can be compiled with a host C++ compiler (g++
+// -std=c++20 -DHFAV_EMULATE) and tested on a machine without a GPU.
+// Blocks run one after another; the threads of a block are host threads
+// that meet at a std::barrier in __syncthreads(), so a missing barrier
+// shows up as a wrong result.  Never used for a GPU build.
+//
+// Warps.  Threads 32w .. 32w + 31 of a block form warp w, with a barrier
+// of its own (__syncwarp) and one exchange slot per lane.  A warp
+// collective -- __shfl_xor_sync, ldmatrix (x4, plain or .trans) and
+// mma.sync m16n8k16 bf16 -- writes each lane's operand to its slot, meets
+// the warp at its barrier, reads what it needs from the other lanes'
+// slots, and meets it again before any slot is reused; the operands go
+// in and come out in the fragment layouts of the PTX ISA, so a kernel's
+// fragment indexing is tested as written.  cp.async is an immediate
+// 16-byte copy (zero-filled past the source size) whose commit and wait
+// are no-ops: the emulation cannot catch a missing cp.async wait, only
+// the card's conformance runs can.
 #pragma once
 
 #include <barrier>
 #include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -17,7 +30,7 @@
 #define __device__
 #define __forceinline__ inline
 #define __shared__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 
 typedef void* cudaStream_t;
 
@@ -45,6 +58,12 @@ inline float __int_as_float(unsigned v) {
   return f;
 }
 
+inline float __uint_as_float(unsigned v) { return __int_as_float(v); }
+
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+
 // bfloat16 as the card stores it (the high half of a float), with the
 // conversions of cuda_bf16.h; float -> bf16 rounds to nearest even.
 struct __nv_bfloat16 {
@@ -70,15 +89,125 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 inline const char* cudaGetErrorString(int) { return "emulated launch"; }
 #define cudaError_t int
 
+// ---- warps -------------------------------------------------------------
+struct hfav_slot {
+  alignas(16) unsigned char bytes[32];
+};
+inline std::deque<std::barrier<>>* hfav_warp_barriers = nullptr;
+inline hfav_slot* hfav_slots = nullptr;  // one per thread of the block
+
+inline unsigned hfav_lane() { return threadIdx.x % 32; }
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*hfav_warp_barriers)[threadIdx.x / 32].arrive_and_wait();
+}
+
+// Publish `n` bytes of this lane's operand, and meet the warp.
+inline void hfav_publish(const void* src, std::size_t n) {
+  std::memcpy(hfav_slots[threadIdx.x].bytes, src, n);
+  __syncwarp();
+}
+
+// The slot of lane `l` of this thread's warp.
+inline const unsigned char* hfav_peer(unsigned l) {
+  return hfav_slots[threadIdx.x - hfav_lane() + l].bytes;
+}
+
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= sizeof(hfav_slot::bytes));
+  hfav_publish(&v, sizeof v);
+  T out;
+  std::memcpy(&out, hfav_peer(hfav_lane() ^ static_cast<unsigned>(lane_mask)),
+              sizeof out);
+  __syncwarp();
+  return out;
+}
+
+// ldmatrix.sync.aligned.m8n8.x4(.trans).shared.b16: lanes 8i .. 8i + 7
+// give the row addresses of 8 x 8 matrix i (16 bytes a row); register i
+// of lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of
+// matrix i, or with .trans rows 2 (l % 4) and 2 (l % 4) + 1 of column
+// l / 4 (the first element in the low half).
+inline void hfav_ldmatrix_x4(unsigned r[4], const void* row, bool trans) {
+  hfav_publish(&row, sizeof row);
+  const unsigned lane = hfav_lane();
+  auto addr = [](unsigned l) {
+    const unsigned char* a;
+    std::memcpy(&a, hfav_peer(l), sizeof a);
+    return a;
+  };
+  for (unsigned i = 0; i < 4; ++i) {
+    if (!trans) {
+      std::memcpy(&r[i], addr(8 * i + lane / 4) + 4 * (lane % 4), 4);
+    } else {
+      unsigned short lo, hi;
+      std::memcpy(&lo, addr(8 * i + 2 * (lane % 4)) + 2 * (lane / 4), 2);
+      std::memcpy(&hi, addr(8 * i + 2 * (lane % 4) + 1) + 2 * (lane / 4), 2);
+      r[i] = lo | static_cast<unsigned>(hi) << 16;
+    }
+  }
+  __syncwarp();
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: d = A B + c with
+// A 16 x 16, B 16 x 8, bf16 pairs packed low element first.  Lane l, with
+// g = l / 4 and t = l % 4, holds A rows g and g + 8 at columns 2t, 2t + 1
+// (registers 0, 1) and 2t + 8, 2t + 9 (registers 2, 3); B rows 2t, 2t + 1
+// (register 0) and 2t + 8, 2t + 9 (register 1) of column g; and c, d at
+// rows g (0, 1) and g + 8 (2, 3), columns 2t and 2t + 1.  Products are
+// exact in float32; the sum is taken in k order after c.
+inline void hfav_mma_bf16(float d[4], const unsigned a[4], const unsigned b[2],
+                          const float c[4]) {
+  unsigned ops[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  hfav_publish(ops, sizeof ops);
+  auto lo = [](unsigned w) { return __uint_as_float(w << 16); };
+  auto hi = [](unsigned w) { return __uint_as_float(w & 0xffff0000u); };
+  float A[16][16], B[16][8];
+  for (unsigned l = 0; l < 32; ++l) {
+    unsigned o[6];
+    std::memcpy(o, hfav_peer(l), sizeof o);
+    const unsigned g = l / 4, t = l % 4;
+    for (unsigned h = 0; h < 2; ++h) {  // column halves of A, row halves of B
+      A[g][2 * t + 8 * h] = lo(o[2 * h]);
+      A[g][2 * t + 8 * h + 1] = hi(o[2 * h]);
+      A[g + 8][2 * t + 8 * h] = lo(o[2 * h + 1]);
+      A[g + 8][2 * t + 8 * h + 1] = hi(o[2 * h + 1]);
+      B[2 * t + 8 * h][g] = lo(o[4 + h]);
+      B[2 * t + 8 * h + 1][g] = hi(o[4 + h]);
+    }
+  }
+  __syncwarp();
+  const unsigned g = hfav_lane() / 4, t = hfav_lane() % 4;
+  for (unsigned e = 0; e < 4; ++e) {
+    const unsigned row = g + 8 * (e / 2), col = 2 * t + e % 2;
+    float s = c[e];
+    for (unsigned k = 0; k < 16; ++k) s += A[row][k] * B[k][col];
+    d[e] = s;
+  }
+}
+
+// cp.async.cg.shared.global, 16 bytes, the rest zero past `src_bytes`
+inline void hfav_cp_async16(void* dst, const void* src, int src_bytes) {
+  std::memset(dst, 0, 16);
+  if (src_bytes > 0) std::memcpy(dst, src, src_bytes < 16 ? src_bytes : 16);
+}
+
 template <typename Kernel, typename Params>
 int emulate_launch(Kernel kernel, const Params& prm, long long nblocks,
                    int threads, long long smem_bytes) {
   if (smem_bytes > static_cast<long long>(sizeof hfav_smem)) return 1;
   blockDim.x = static_cast<unsigned>(threads);
+  std::vector<hfav_slot> slots(threads);
+  hfav_slots = slots.data();
   for (long long b = 0; b < nblocks; ++b) {
     blockIdx.x = static_cast<unsigned>(b);
     std::barrier<> bar(threads);
     hfav_block_barrier = &bar;
+    std::deque<std::barrier<>> warps;
+    for (int w = 0; w < threads; w += 32)
+      warps.emplace_back(threads - w < 32 ? threads - w : 32);
+    hfav_warp_barriers = &warps;
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([&, t] {

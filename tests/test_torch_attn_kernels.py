@@ -3,22 +3,31 @@ against their plain versions, which ``tests/test_torch_attention.py``
 holds against the JAX package.  This file imports no JAX, so its
 ``cuda``-marked cases run on the card's machine, which has none.
 
+* The warp collectives of the host emulation (``emulate.h``:
+  ``ldmatrix`` x4 plain and ``.trans``, ``mma.sync`` m16n8k16 bf16,
+  ``__shfl_xor_sync``) against numpy's matmul and transpose, which pins
+  their fragment layouts independently of the kernels.
 * The CUDA sources compiled as host C++ (``g++ -DHFAV_EMULATE``: blocks
   in sequence, a block's threads as host threads meeting at a barrier,
-  bf16 by a shim in ``emulate.h``) and held against the plain versions:
-  the kernels' tiling, masking, tile skipping, strides, split and
-  combine logic on the CPU.
+  warps exchanging operands through slots, bf16 by a shim in
+  ``emulate.h``) and held against the plain versions: the kernels'
+  tiling, fragments, swizzles, masking, tile skipping, strides, split
+  and combine logic on the CPU, every K2 shape through both its
+  tensor-core (bf16) and its float32 route.
 * ``cuda``-marked cases (they skip without a card): each kernel against
   its plain version on the card, and the LM slice with the kernels
   against the plain path on the same weights.
 
 Tolerances: emulated float32 ``1e-5`` (the same float32 arithmetic in
 another order); on the card float32 ``1e-4``; bf16 ``2e-2`` (one bf16
-rounding of the output, or of the cached values).
+rounding of the output, or of the cached values), and for K2's split P
+a relative L2 of ``2e-4`` (a single bf16 P gives ~1.9e-3 there) and
+``5e-6`` on short rows (a split into two terms fails it).
 """
 from __future__ import annotations
 
 import ctypes
+import pathlib
 import shutil
 import subprocess
 
@@ -79,19 +88,134 @@ def emulated(tmp_path_factory):
     return libs
 
 
-# B, Sq, Skv, H, KVH, D, causal, window, q_offset, dtype
+EMULATE_H = pathlib.Path(k2.__file__).resolve().parents[1] / "stencil2d" \
+    / "csrc" / "emulate.h"
+# Two warps, each loading three 16 x 16 bf16 matrices of its own from
+# shared memory: A by ldmatrix (A fragments), Bt (B stored n-major, as K
+# rows are) by ldmatrix, V (k-major, as V rows are) by ldmatrix.trans;
+# then A Bt^T and A V by mma (two n8 tiles each), and a shuffle.
+PRIMS_SRC = r"""
+#include "emulate.h"
+struct Args {
+  const unsigned short* m;  // (2 warps, 3 matrices, 16, 16) bf16
+  unsigned* raw;            // (2, 32 lanes, 3, 4) ldmatrix registers
+  float* d;                 // (2, 2 products, 16, 16)
+  float* shfl;              // (2, 32, 5)
+};
+void prims(const Args p) {
+  const unsigned w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  unsigned char* const sm = reinterpret_cast<unsigned char*>(hfav_smem) +
+                            w * 3 * 512;
+  if (lane == 0) std::memcpy(sm, p.m + w * 3 * 256, 3 * 512);
+  __syncwarp();
+  const unsigned r = (lane & 7) + 8 * ((lane >> 3) & 1), h = lane >> 4;
+  unsigned regs[3][4];
+  hfav_ldmatrix_x4(regs[0], sm + 32 * r + 16 * h, false);
+  hfav_ldmatrix_x4(regs[1],
+                   sm + 512 + 32 * (8 * h + (lane & 7)) + 16 * ((lane >> 3) & 1),
+                   false);
+  hfav_ldmatrix_x4(regs[2], sm + 1024 + 32 * r + 16 * h, true);
+  for (int m = 0; m < 3; ++m)
+    for (int i = 0; i < 4; ++i)
+      p.raw[((w * 32 + lane) * 3 + m) * 4 + i] = regs[m][i];
+  const unsigned g = lane / 4, t = lane % 4;
+  for (int prod = 0; prod < 2; ++prod)
+    for (int n = 0; n < 2; ++n) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      hfav_mma_bf16(d, regs[0], regs[1 + prod] + 2 * n, d);
+      for (int e = 0; e < 4; ++e)
+        p.d[((w * 2 + prod) * 16 + g + 8 * (e / 2)) * 16 + 8 * n + 2 * t +
+            e % 2] = d[e];
+    }
+  const float x = lane * 1.5f + w;
+  for (int k = 0; k < 5; ++k)
+    p.shfl[(w * 32 + lane) * 5 + k] = __shfl_xor_sync(~0u, x, 1 << k);
+}
+extern "C" int run_prims(const Args* p) {
+  return emulate_launch(prims, *p, 1, 64, 0);
+}
+"""
+
+
+def _frag(m8, lane):
+    """Register ``lane`` of ldmatrix (not transposed) on the 8 x 8 matrix
+    ``m8``: row lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1."""
+    return m8[lane // 4, 2 * (lane % 4):2 * (lane % 4) + 2]
+
+
+def test_emulated_warp_collectives_match_numpy(tmp_path):
+    """ldmatrix x4 (plain and .trans), mma.sync m16n8k16 bf16 and
+    __shfl_xor_sync of ``emulate.h`` against numpy's transpose and matmul
+    (the PTX ISA's fragment layouts)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
+    src, so = tmp_path / "prims.cc", tmp_path / "prims.so"
+    src.write_text(PRIMS_SRC)
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         "-DHFAV_EMULATE", f"-I{EMULATE_H.parent}", "-o", str(so), str(src)],
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    rng = np.random.default_rng(12)
+    mats = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    bits = mats.view(torch.int16).numpy().astype(np.uint16)
+    vals = mats.float().numpy().astype(np.float64)
+    raw = np.zeros((2, 32, 3, 4), np.uint32)
+    d = np.zeros((2, 2, 16, 16), np.float32)
+    shfl = np.zeros((2, 32, 5), np.float32)
+
+    class Args(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_void_p) for n in ("m", "raw", "d", "shfl")]
+
+    args = Args(bits.ctypes.data, raw.ctypes.data, d.ctypes.data,
+                shfl.ctypes.data)
+    assert lib.run_prims(ctypes.byref(args)) == 0
+    halves = np.stack([raw & 0xffff, raw >> 16], axis=-1).astype(np.uint16)
+    for w in range(2):
+        A, Bt, V = bits[w]
+        for lane in range(32):
+            for i in range(4):  # 8 x 8 matrix i: rows 8 (i % 2), cols 8 (i // 2)
+                r0, c0 = 8 * (i % 2), 8 * (i // 2)
+                np.testing.assert_array_equal(
+                    halves[w, lane, 0, i], _frag(A[r0:r0 + 8, c0:c0 + 8],
+                                                 lane))
+                np.testing.assert_array_equal(
+                    halves[w, lane, 2, i], _frag(V[r0:r0 + 8, c0:c0 + 8].T,
+                                                 lane))
+                # Bt: matrices (n tile i // 2, k half i % 2)
+                n0, k0 = 8 * (i // 2), 8 * (i % 2)
+                np.testing.assert_array_equal(
+                    halves[w, lane, 1, i], _frag(Bt[n0:n0 + 8, k0:k0 + 8],
+                                                 lane))
+        a, bt, v = vals[w]
+        np.testing.assert_allclose(d[w, 0], a @ bt.T, rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(d[w, 1], a @ v, rtol=1e-6, atol=1e-5)
+        x = np.arange(32) * 1.5 + w
+        for k in range(5):
+            np.testing.assert_array_equal(shfl[w, :, k], x[np.arange(32)
+                                                           ^ (1 << k)])
+
+
+# B, Sq, Skv, H, KVH, D, causal, window, q_offset; each in float32 (the
+# scalar kernel) and bf16 (the tensor-core kernel)
 EMU_ATTN_CASES = [
-    (1, 70, 70, 2, 1, 32, True, None, 0, "float32"),      # ragged S
-    (1, 64, 100, 2, 2, 16, False, None, 36, "float32"),   # Sq < Skv
-    (2, 130, 130, 2, 1, 64, True, 20, 0, "float32"),      # masked tiles
-    (1, 40, 72, 2, 1, 80, True, None, 32, "bfloat16"),
-    (1, 65, 65, 2, 2, 128, False, 30, 0, "float32"),
+    (1, 70, 70, 2, 1, 32, True, None, 0),       # ragged S
+    (1, 64, 100, 2, 2, 16, False, None, 36),    # Sq < Skv
+    (2, 130, 130, 2, 1, 64, True, 20, 0),       # masked tiles
+    (1, 40, 72, 2, 1, 80, True, None, 32),
+    (1, 65, 65, 2, 2, 128, False, 30, 0),
+    (1, 77, 141, 2, 1, 16, True, None, 64),     # ragged Sq and Skv
+    (1, 93, 150, 2, 2, 128, False, None, 57),   # ragged Sq and Skv
 ]
+DTYPES = ["float32", "bfloat16"]
 
 
+@pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("case", EMU_ATTN_CASES)
-def test_emulated_flash_attention_matches_plain(case, emulated):
-    B, Sq, Skv, H, KVH, D, causal, window, q_off, dt = case
+def test_emulated_flash_attention_matches_plain(case, dt, emulated):
+    B, Sq, Skv, H, KVH, D, causal, window, q_off = case
     q, k, v = _attn_inputs((B, Sq, H, D), (B, Skv, KVH, D), 7)
     q, k, v = _torch(q, dt), _torch(k, dt), _torch(v, dt)
     o = torch.full_like(q, float("nan"))
@@ -123,7 +247,116 @@ def test_emulated_flash_attention_strided_inputs(emulated):
     np.testing.assert_allclose(_np(o), _np(want), atol=1e-5, rtol=1e-5)
 
 
-# B, S, H, KVH, D, window, chunk, q dtype, cache dtype
+# B, S, H, D, bound emulated, bound on the card (whose tensor cores sum
+# in another order): the causal case where one bf16 P gives ~1.9e-3, and
+# short rows (a single 32-key tile), where a split into two bf16 terms
+# fails the bounds and three (P_hi, P_mid, P_lo) meet them
+SPLIT_P_CASES = [(1, 257, 2, 128, 2e-4, 2e-4), (4, 32, 4, 16, 5e-6, 1e-5)]
+
+
+@pytest.mark.parametrize("case", SPLIT_P_CASES)
+def test_emulated_flash_attention_split_p(case, emulated):
+    """bf16, causal: the tensor-core kernel with P split in bf16 terms
+    stays within the bound (relative L2) of the float32 function; P
+    rounded to bf16 once (as SDPA does) would not."""
+    B, S, H, D, bound, _ = case
+    q, k, v = (_torch(a, "bfloat16") for a in
+               _attn_inputs((B, S, H, D), (B, S, 1, D), 11))
+    o = torch.empty_like(q)
+    k2.launch(emulated["fa"], q, k, v, o, causal=True, window=None,
+              q_offset=0, scale=D ** -0.5, stream=None)
+    want = k2.flash_attention_plain(q, k, v, causal=True, window=None,
+                                    q_offset=0, scale=D ** -0.5).float()
+    assert _rel_l2(o, want) < bound
+    # the bound has teeth: one bf16 rounding of the normalised P
+    s = torch.einsum("bqhd,bkd->bhqk", q.float() * D ** -0.5,
+                     k[:, :, 0].float())
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    p1 = torch.softmax(s, -1).to(torch.bfloat16).float()
+    single = torch.einsum("bhqk,bkd->bqhd", p1, v[:, :, 0].float())
+    assert _rel_l2(single.to(torch.bfloat16), want) > 1e-3
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("what", ["base", "stride", "out"])
+def test_emulated_flash_attention_refuses_misaligned_bf16(what, emulated):
+    """The tensor-core kernel copies 16-byte rows: a bf16 view of q (or,
+    for "out", an output view) whose base or row stride is not 16-byte
+    aligned raises ValueError, not a fallback."""
+    rng = np.random.default_rng(13)
+    D = 32
+    wide = _torch(rng.standard_normal((1, 40, 2, D + 8)).astype(np.float32),
+                  "bfloat16")
+    if what == "base":  # one element past an aligned row start
+        q = wide[..., 1:D + 1]
+    elif what == "stride":  # rows of D + 1 elements
+        base = _torch(rng.standard_normal((1, 40, 2 * (D + 1))).astype(
+            np.float32), "bfloat16")
+        q = base.as_strided((1, 40, 2, D), (40 * 2 * (D + 1), 2 * (D + 1),
+                                            D + 1, 1))
+    else:
+        q = wide[..., :D].contiguous()
+    k = v = _torch(rng.standard_normal((1, 40, 1, D)).astype(np.float32),
+                   "bfloat16")
+    o = torch.empty(q.shape, dtype=q.dtype) if what != "out" else \
+        torch.empty((1, 40, 2, D + 4), dtype=q.dtype)[..., :D]
+    with pytest.raises(ValueError, match="16 bytes"):
+        k2.launch(emulated["fa"], q, k, v, o, causal=True, window=None,
+                  q_offset=0, scale=0.2, stream=None)
+    if what == "out":  # K3 writes its output one element at a time
+        return
+    with pytest.raises(ValueError, match="16 bytes"):  # K3's caches too
+        k3.launch(emulated["fd"], q[:, 0], q, q, torch.ones(1, dtype=torch.int32),
+                  *k3.buffers(q[:, 0], 2, 1), window=None, scale=0.2,
+                  stream=None)
+
+
+def _expected_split(lens, S: int, window, nsplit: int):
+    """Per sequence: the keys of its valid range, and the split blocks
+    of one KV head that hold a key when the range is cut into nsplit
+    pieces of a multiple of 64 keys."""
+    out = []
+    for n in lens:
+        end, start = min(n, S), max(0, n - window) if window else 0
+        valid = max(end - start, 0)
+        per = -(-(-(-valid // nsplit)) // 64) * 64
+        out.append((valid, -(-valid // per) if valid else 0))
+    return out
+
+
+def _decode_case(case, lens, seed=9):
+    B, S, H, KVH, D, window, sms, qdt, cdt = case
+    rng = np.random.default_rng(seed)
+    q = _torch(rng.standard_normal((B, H, D)).astype(np.float32), qdt)
+    kc = _torch(rng.standard_normal((B, S, KVH, D)).astype(np.float32), cdt)
+    vc = _torch(rng.standard_normal((B, S, KVH, D)).astype(np.float32), cdt)
+    if lens is None:
+        lens = rng.integers(1, S + 1, (B,)).astype(np.int32)
+        lens[0] = 1
+    return q, kc, vc, torch.tensor(lens, dtype=torch.int32)
+
+
+def _check_launch(res, case, lens):
+    """The blocks launched, and the keys each split block held: the
+    valid range of every (sequence, KV head), each key once, in as many
+    working splits as the policy gives."""
+    B, S, H, KVH, D, window, sms, _, _ = case
+    nsplit = k3.n_splits(B, KVH, S, sms)
+    assert (res.split_blocks, res.combine_blocks) == (B * KVH * nsplit, B * H)
+    keys = res.keys.cpu().numpy()
+    assert keys.shape == (B, KVH, nsplit)
+    exp = _expected_split([int(n) for n in lens], S, window, nsplit)
+    for b, (valid, working) in enumerate(exp):
+        assert (keys[b].sum(-1) == valid).all()
+        assert ((keys[b] > 0).sum(-1) == working).all()
+    assert res.working == KVH * sum(w for _, w in exp)
+
+
+# B, S, H, KVH, D, window, SM count the split policy sizes for, q dtype,
+# cache dtype
 EMU_DECODE_CASES = [
     (2, 100, 4, 2, 32, None, 32, "float32", "float32"),
     (3, 64, 4, 4, 16, 24, 16, "float32", "float32"),
@@ -135,23 +368,46 @@ EMU_DECODE_CASES = [
 
 @pytest.mark.parametrize("case", EMU_DECODE_CASES)
 def test_emulated_flash_decode_matches_plain(case, emulated):
-    B, S, H, KVH, D, window, chunk, qdt, cdt = case
-    rng = np.random.default_rng(9)
-    q = _torch(rng.standard_normal((B, H, D)).astype(np.float32), qdt)
-    kc = _torch(rng.standard_normal((B, S, KVH, D)).astype(np.float32), cdt)
-    vc = _torch(rng.standard_normal((B, S, KVH, D)).astype(np.float32), cdt)
-    lens = rng.integers(1, S + 1, (B,)).astype(np.int32)
-    lens[0] = 1
-    lens = torch.from_numpy(lens)
-    o, ml, acc = k3.buffers(q, S, chunk)
-    grids = k3.launch(emulated["fd"], q, kc, vc, lens, o, ml, acc,
-                      window=window, scale=D ** -0.5, chunk=chunk,
-                      stream=None)
-    assert grids == (B * KVH * -(-S // chunk), B * H)
+    B, S, H, KVH, D, window, sms, qdt, cdt = case
+    q, kc, vc, lens = _decode_case(case, None)
+    nsplit = k3.n_splits(B, KVH, S, sms)
+    bufs = k3.buffers(q, KVH, nsplit)
+    res = k3.launch(emulated["fd"], q, kc, vc, lens, *bufs, window=window,
+                    scale=D ** -0.5, stream=None)
+    _check_launch(res, case, lens)
     want = k3.flash_decode_plain(q, kc, vc, lens, window=window,
                                  scale=D ** -0.5)
     tol = dict(atol=1e-5, rtol=1e-5) if qdt == "float32" else BF16_TOL
-    np.testing.assert_allclose(_np(o), _np(want), **tol)
+    np.testing.assert_allclose(_np(bufs[0]), _np(want), **tol)
+
+
+# short lengths in a long cache (the main path's), a window, lengths past
+# the cache, and ranges long enough for every split
+EMU_SPLIT_CASES = [
+    ((3, 512, 4, 2, 128, None, 132, "bfloat16", "bfloat16"), [1, 17, 31]),
+    ((3, 512, 4, 2, 64, 100, 132, "float32", "float32"), [1, 17, 500]),
+    ((2, 300, 8, 2, 80, 40, 132, "bfloat16", "float32"), [290, 320]),
+    ((2, 700, 4, 2, 32, None, 2, "float32", "bfloat16"), [700, 650]),
+]
+
+
+@pytest.mark.parametrize("case,lens", EMU_SPLIT_CASES)
+def test_emulated_flash_decode_split_follows_lengths(case, lens, emulated):
+    """Each split block takes its share of its sequence's valid range,
+    found on the device: at lengths 1, 17 and 31 of a 512-position cache
+    only the first split of each (sequence, KV head) holds keys."""
+    B, S, H, KVH, D, window, sms, qdt, cdt = case
+    q, kc, vc, lens = _decode_case(case, lens)
+    bufs = k3.buffers(q, KVH, k3.n_splits(B, KVH, S, sms))
+    res = k3.launch(emulated["fd"], q, kc, vc, lens, *bufs, window=window,
+                    scale=D ** -0.5, stream=None)
+    _check_launch(res, case, lens)
+    if S == 512 and window is None:
+        assert res.working == B * KVH < res.split_blocks
+    want = k3.flash_decode_plain(q, kc, vc, lens, window=window,
+                                 scale=D ** -0.5)
+    tol = dict(atol=1e-5, rtol=1e-5) if qdt == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(bufs[0]), _np(want), **tol)
 
 
 def test_emulated_flash_decode_length_past_the_cache(emulated):
@@ -167,12 +423,13 @@ def test_emulated_flash_decode_length_past_the_cache(emulated):
     kc = vc = full[:, :S]
     lens = torch.tensor([S + 9, 40], dtype=torch.int32)
     for window in (None, 30):
-        o, ml, acc = k3.buffers(q, S, 64)
-        k3.launch(emulated["fd"], q, kc, vc, lens, o, ml, acc,
-                  window=window, scale=D ** -0.5, chunk=64, stream=None)
+        bufs = k3.buffers(q, 2, k3.n_splits(2, 2, S))
+        k3.launch(emulated["fd"], q, kc, vc, lens, *bufs, window=window,
+                  scale=D ** -0.5, stream=None)
         want = k3.flash_decode_plain(q, kc, vc, lens, window=window,
                                      scale=D ** -0.5)
-        np.testing.assert_allclose(_np(o), _np(want), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(bufs[0]), _np(want), atol=1e-5,
+                                   rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +442,13 @@ def _need_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("case", EMU_ATTN_CASES + [
-    (2, 128, 128, 4, 2, 64, True, None, 0, "bfloat16")])
-def test_flash_attention_kernel_matches_plain_on_card(case):
+    (2, 128, 128, 4, 2, 64, True, None, 0),
+    (1, 257, 257, 2, 1, 128, True, None, 0)])
+def test_flash_attention_kernel_matches_plain_on_card(case, dt):
     _need_card()
-    B, Sq, Skv, H, KVH, D, causal, window, q_off, dt = case
+    B, Sq, Skv, H, KVH, D, causal, window, q_off = case
     q, k, v = _attn_inputs((B, Sq, H, D), (B, Skv, KVH, D), 7)
     q, k, v = (_torch(a, dt, "cuda") for a in (q, k, v))
     before = k2.launches
@@ -201,21 +460,42 @@ def test_flash_attention_kernel_matches_plain_on_card(case):
                                     q_offset=q_off, scale=D ** -0.5)
     tol = dict(atol=1e-4, rtol=1e-4) if dt == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dt == "bfloat16":  # split P: the float32 function's accuracy
+        assert _rel_l2(got, want) < 2e-4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", EMU_DECODE_CASES)
-def test_flash_decode_kernel_matches_plain_on_card(case):
+@pytest.mark.parametrize("case", SPLIT_P_CASES)
+def test_flash_attention_split_p_on_card(case):
     _need_card()
-    B, S, H, KVH, D, window, chunk, qdt, cdt = case
-    rng = np.random.default_rng(9)
-    q = _torch(rng.standard_normal((B, H, D)).astype(np.float32), qdt, "cuda")
-    kc = _torch(rng.standard_normal((B, S, KVH, D)).astype(np.float32), cdt,
-                "cuda")
-    vc = _torch(rng.standard_normal((B, S, KVH, D)).astype(np.float32), cdt,
-                "cuda")
-    lens = torch.from_numpy(
-        rng.integers(1, S + 1, (B,)).astype(np.int32)).cuda()
+    B, S, H, D, _, bound = case
+    q, k, v = (_torch(a, "bfloat16", "cuda") for a in
+               _attn_inputs((B, S, H, D), (B, S, 1, D), 11))
+    got = k2.flash_attention_fwd(q, k, v, causal=True)
+    want = k2.flash_attention_plain(q, k, v, causal=True, window=None,
+                                    q_offset=0, scale=D ** -0.5)
+    assert _rel_l2(got, want) < bound
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_misaligned_bf16_on_card():
+    _need_card()
+    base = torch.randn((1, 40, 2, 40), device="cuda").to(torch.bfloat16)
+    q = base[..., 1:33]
+    k = v = torch.randn((1, 40, 1, 32), device="cuda").to(torch.bfloat16)
+    before = k2.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        k2.flash_attention_fwd(q, k, v, causal=True)
+    assert k2.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,lens", [
+    *((c, None) for c in EMU_DECODE_CASES), *EMU_SPLIT_CASES])
+def test_flash_decode_kernel_matches_plain_on_card(case, lens):
+    _need_card()
+    B, S, H, KVH, D, window, sms, qdt, cdt = case
+    q, kc, vc, lens = (t.cuda() for t in _decode_case(case, lens))
     before = k3.launches
     got = k3.flash_decode(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
@@ -224,14 +504,14 @@ def test_flash_decode_kernel_matches_plain_on_card(case):
                                  scale=D ** -0.5)
     tol = dict(atol=1e-4, rtol=1e-4) if qdt == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
-    # the case's own split size, as the emulated case runs it
-    o, ml, acc = k3.buffers(q, S, chunk)
-    grids = k3.launch(k3.library(), q, kc, vc, lens.int(), o, ml, acc,
-                      window=window, scale=D ** -0.5, chunk=chunk,
-                      stream=torch.cuda.current_stream().cuda_stream)
+    # the case's own split count, as the emulated case runs it
+    bufs = k3.buffers(q, KVH, k3.n_splits(B, KVH, S, sms))
+    res = k3.launch(k3.library(), q, kc, vc, lens, *bufs, window=window,
+                    scale=D ** -0.5,
+                    stream=torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
-    assert grids == (B * KVH * -(-S // chunk), B * H)
-    torch.testing.assert_close(o.float(), want.float(), **tol)
+    _check_launch(res, case, lens.cpu())
+    torch.testing.assert_close(bufs[0].float(), want.float(), **tol)
 
 
 @pytest.mark.cuda
