@@ -13,20 +13,23 @@ Phases, each of which raises on failure:
    power limit;
 2. build: every CallPlan of the 15 programs is emitted and built with
    one ``nvcc`` per source, all started together; the tensor-core
-   instructions of K2's library are counted (``cuobjdump -sass``, HMMA),
-   and the run fails if there are none;
+   instructions of K2's and K4's libraries are counted (``cuobjdump
+   -sass``, HMMA), and the run fails if either has none;
 3. conformance: all 15 programs on the ``"cuda"`` kernel against the
    plain ``"interp_torch"`` interpreter, both on the card, with a small
-   forced row chunk and with the default one;
+   forced row chunk and with the default one; the four plane-window
+   programs also with small forced plane chunks and row tiles (one that
+   does not divide the planes, and 1 x 1);
 4. main path at the sizes of the repository's benchmarks:
    ``compile_program(prog)`` (backend ``"cuda"``) on normalization
    (4096 x 2048), hydro1d (2048 x 4096) and cosmo (64 x 512 x 512),
    held against the port's unfused evaluator and the plain interpreter,
    timed by CUDA events (median of 20 runs after warm-up, L2 flushed
    between runs) beside the bytes each call must move and their bound;
-   then, the same way, the plane-window programs, whose calls run
-   unchunked (heat3d at 6 x 32 x 256 and 64 x 512 x 512, advect4d_halo
-   at 4 x 16 x 512 x 512);
+   then, the same way, the plane-window programs, whose calls run in
+   plane chunks times row tiles (heat3d at 6 x 32 x 256 and 64 x 512 x
+   512, heat3d_stage and heat3d_residual_norm at 64 x 512 x 512,
+   advect4d_halo at 4 x 16 x 512 x 512);
 5. attention conformance: flash attention (K2) and flash decode (K3)
    against their plain versions on the card, float32 and bf16, causal
    or not, with and without a window, GQA groups 1, 2 and 4, head dims
@@ -85,6 +88,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 ATOL, RTOL = 2e-4, 1e-3
 CONFORMANCE_DIMS = {"i": 200, "j": 37, "k": 5, "l": 3}
 SMALL_CHUNK = 3
+#: Plane chunks forced on the plane-window programs at conformance size
+#: (2 does not divide k = 5).
+SMALL_PLANE_CHUNK = 2
 K1_SOURCE = "src/repro_torch/kernels/stencil2d/csrc/stencil2d.cuh"
 K1_REPLACES = "src/repro/kernels/stencil2d/kernel.py:95"
 K2_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -244,8 +250,13 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
                  for _, lay, run, args in records)
     bound_ms = nbytes / rate * 1e3
     blocks = "+".join(str(run.nblocks) for _, _, run, _ in records)
+    # per call: plane chunks x row chunks, of planes x rows each
+    tiles = "+".join(f"{run.npchunks}x{run.nchunks} of "
+                     f"{run.pchunk_len}x{run.chunk_len}"
+                     for _, _, run, _ in records)
     shape = tuple(dims.values())
-    print(f"main {n:14s} {shape}: launches={launches}  blocks={blocks}  "
+    print(f"main {n:14s} {shape}: launches={launches}  blocks={blocks} "
+          f"({tiles})  smem={records[0][2].smem_bytes}  "
           f"err_vs_unfused={err_unfused:.3e}  "
           f"err_vs_plain={err_plain:.3e}  fn_ms={fn_ms:.4f}  "
           f"kernel_ms={kernel_ms:.4f}  unfused_ms={unfused_ms:.4f}  "
@@ -259,6 +270,7 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None,
         "fn_ms": fn_ms, "unfused_ms": unfused_ms, "blocks": blocks,
+        "tiles": tiles,
     }
 
 
@@ -914,20 +926,30 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     L = k4.chunk_len(x.shape[1], k4_kw["chunk"])
     want = ssd_scan(x, dtv, A, Bm, Cm, D, chunk=L)
     y, k4_run = k4.prepare(x, dtv, A, Bm, Cm, D, **k4_kw)
-    blocks = k4_run()
+    blocks = "+".join(map(str, k4_run()))  # the four launches' grids
     k4_err, k4_rel = ssd_close(y, want, f"K4 at the {arch} prefill shape, "
                                f"timed launch", SSD_CALL_TOL)
     k4_ms = bench.device_ms(k4_run, flush)
     k4_plain_ms = bench.device_ms(
         lambda: ssd_scan(x, dtv, A, Bm, Cm, D, chunk=L), flush, runs=5)
     flops, nbytes = sb.ssd_work(x, dtv, Bm, Cm, D, L)
-    k4_bound, k4_by = sb.bound_ms(flops, nbytes, sb.f32_peak(name), rate)
+    scratch_bytes = sb.ssd_scratch_bytes(x, N, L)
+    # measured against the tensor-core bound: the nominal float32 work at
+    # the dense TF32 rate (3xTF32 executes two to three times as much);
+    # the float32-FMA bound printed beside it
+    k4_bound, k4_by = sb.bound_ms(flops, nbytes, sb.tf32_peak(name), rate)
+    f32_bound, f32_by = sb.bound_ms(flops, nbytes, sb.f32_peak(name), rate)
+    scratch_bound = (nbytes + scratch_bytes) / rate * 1e3
     print(f"K4 ({arch}: B={x.shape[0]} S={x.shape[1]} H={H} P={P} N={N} "
           f"L={L} x {str(x.dtype).replace('torch.', '')}): ms={k4_ms:.4f}  "
-          f"plain_ms={k4_plain_ms:.3f}  flops={flops:.3e} bytes={nbytes}  "
-          f"bound_ms={k4_bound:.4f} ({k4_by}; float32 at "
-          f"{sb.f32_peak(name) / 1e12:.0f} TFLOP/s, bytes at "
-          f"{rate / 1e12:.2f} TB/s)  {flops / k4_ms / 1e9:.2f} TFLOP/s  "
+          f"plain_ms={k4_plain_ms:.3f}  flops={flops:.3e} bytes={nbytes} "
+          f"+ scratch_bytes={scratch_bytes} between the passes  "
+          f"bound_ms={k4_bound:.4f} ({k4_by}; TF32 tensor cores at "
+          f"{sb.tf32_peak(name) / 1e12:.0f} TFLOP/s, bytes at "
+          f"{rate / 1e12:.2f} TB/s)  float32-FMA bound_ms={f32_bound:.4f} "
+          f"({f32_by}; {sb.f32_peak(name) / 1e12:.0f} TFLOP/s)  bytes with "
+          f"the scratch {scratch_bound:.4f} ms  "
+          f"{flops / k4_ms / 1e9:.2f} TFLOP/s  "
           f"{100 * k4_ms * layers / prefill_ms:.1f} % of prefill  "
           f"blocks={blocks}  max_abs_err={k4_err:.3e}  "
           f"rel_l2_err={k4_rel:.3e}  card: {smi}", flush=True)
@@ -937,7 +959,8 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
         "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": launches["K4"], "max_abs_err": k4_call[0], "ms": k4_ms,
         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-        "library_ms": None, "rel_l2_err": k4_call[1], "blocks": str(blocks),
+        "library_ms": None, "rel_l2_err": k4_call[1], "blocks": blocks,
+        "f32_bound_ms": f32_bound, "scratch_bytes": scratch_bytes,
         "prefill_ms": prefill_ms, "decode_step_ms": step_ms}]
     del x, dtv, A, Bm, Cm, D, k4_args, y, want
     if groups:
@@ -998,28 +1021,43 @@ def main() -> int:
     print(f"build: {len(calls)} stencil calls + flash attention + flash "
           f"decode + ssd, {built} sources compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    hmma = build.sass_count(k2.job(), "HMMA")
-    print(f"build: K2's library has {hmma} HMMA (tensor-core) instructions "
-          f"(cuobjdump -sass {build.library_path(k2.job())})", flush=True)
-    if hmma == 0:
-        raise AssertionError("K2's library has no tensor-core instruction")
+    hmma = {}
+    for tag, kjob in (("K2", k2.job()), ("K4", k4.job())):
+        hmma[tag] = build.sass_count(kjob, "HMMA")
+        print(f"build: {tag}'s library has {hmma[tag]} HMMA (tensor-core) "
+              f"instructions (cuobjdump -sass {build.library_path(kjob)})",
+              flush=True)
+        if hmma[tag] == 0:
+            raise AssertionError(f"{tag}'s library has no tensor-core "
+                                 f"instruction")
+    heat = next(c for c in plans["heat3d"].calls if c.has_grid)
+    for tag, kjob in (("K4", k4.job()), ("K1 heat3d", k1.job(heat))):
+        print(f"build: {tag} resources (cuobjdump -res-usage):\n"
+              f"{build.resource_usage(kjob)}", flush=True)
 
-    # 3. conformance: "cuda" against "interp_torch", both on the card
+    # 3. conformance: "cuda" against "interp_torch", both on the card;
+    # the plane-window programs also in small forced plane chunks
     for n, b in sorted(ALL_PROGRAMS.items()):
         prog = b()
         arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev)
         want = compile_program(prog, backend="interp_torch",
                                device=dev).fn(**arrs)
+        runs = [{"chunk": SMALL_CHUNK}, {"chunk": None}]
+        if any(k1.layout(c).planar for c in plans[n].calls if c.has_grid):
+            runs[1:1] = [{"chunk": SMALL_CHUNK,
+                          "plane_chunk": SMALL_PLANE_CHUNK},
+                         {"chunk": 1, "plane_chunk": 1}]
         errs = []
-        for chunk in (SMALL_CHUNK, None):
+        for opts in runs:
             got = compile_program(prog, backend="cuda", device=dev,
-                                  chunk=chunk).fn(**arrs)
+                                  **opts).fn(**arrs)
             torch.cuda.synchronize()
-            errs.append(max_err(got, want, f"conformance/{n}/chunk={chunk}"))
-        print(f"conformance {n:22s} max_abs_err chunk={SMALL_CHUNK}: "
-              f"{errs[0]:.3e}  default chunk: {errs[1]:.3e}", flush=True)
+            errs.append(max_err(got, want, f"conformance/{n}/{opts}"))
+        print(f"conformance {n:22s} max_abs_err "
+              + "  ".join(f"{o}: {e:.3e}" for o, e in zip(runs, errs)),
+              flush=True)
 
-    # 4. the main path at real size, then the unchunked plane-window calls
+    # 4. the main path at real size, then the plane-window calls
     flush = bench.l2_flusher(dev)
     entries = [drive(n, dims, dev, flush, rate, smi)
                for n, dims in bench.MAIN_PATH + bench.PLANE_WINDOW_PATH]
@@ -1048,8 +1086,9 @@ def main() -> int:
 
     # 9. the kernels line, the card, and the result
     for e in entries:
-        if e["source"] == K2_SOURCE:
-            e["hmma"] = hmma
+        for tag, source in (("K2", K2_SOURCE), ("K4", K4_SOURCE)):
+            if e["source"] == source:
+                e["hmma"] = hmma[tag]
     print(json.dumps({"kernels": entries}))
     print(bench.smi_line())
     print(json.dumps({"ok": True, "device": {

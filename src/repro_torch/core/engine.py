@@ -117,8 +117,9 @@ def compile_program(
     the current CUDA device when omitted (and an error without CUDA);
     pass ``device="cpu"`` to run on the CPU.  ``options`` are the
     interpreter's build options (the ``"cuda"`` kernel takes
-    ``chunk``, its row-chunk length).  Results are memoized; pass
-    ``use_cache=False`` to force a rebuild.
+    ``chunk``, its row-chunk length, and ``plane_chunk``, the
+    plane-chunk length of a call with plane windows).  Results are
+    memoized; pass ``use_cache=False`` to force a rebuild.
 
     ``check_plans`` gates the plan on the static analyzer
     (:mod:`repro_torch.core.plancheck`): ``"warn"`` (the default,

@@ -87,6 +87,17 @@ def sass_count(job: Job, opcode: str) -> int:
     return sum(opcode in line for line in sass.splitlines())
 
 
+def resource_usage(job: Job) -> str:
+    """Registers, shared memory and spills of each kernel in the built
+    library of ``job`` (``cuobjdump -res-usage``), one line each."""
+    cuobjdump = pathlib.Path(nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-res-usage",
+                          str(library_path(job))], check=True,
+                         capture_output=True, text=True).stdout
+    return "\n".join(line.strip() for line in out.splitlines()
+                     if "REG:" in line or "Function" in line)
+
+
 def _tmp_so(key: str) -> pathlib.Path:
     return BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
 

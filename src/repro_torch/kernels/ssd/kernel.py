@@ -2,11 +2,19 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py:ssd_pallas``.
 The CUDA C++ source is ``csrc/ssd.cu`` (its header comment gives the
-design and what bounds it): one block per (batch, head) walks the chunks
-in order with the (N, P) float32 state in shared memory, and makes each
-chunk's causal L x L product one 64 x 64 tile at a time.  It is built
-with ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`),
-loaded with ``ctypes`` and launched on PyTorch's current stream.
+design and what bounds it): the chunk axis is split across blocks in
+four launches -- the C_t B_u^T tiles of each (batch, chunk), shared by
+the heads; each chunk's own state contribution in parallel; a short
+sequential pass over the chunks' states; then each chunk's outputs, one
+block per 64-row tile -- and every product runs on the tensor cores
+(``mma.sync`` m16n8k8, TF32 operands split in two terms, a float32
+accumulator: 3xTF32), so the kernel keeps the float32 function's
+accuracy.  What bounds it now is the latency of its tile loads and of
+mma.sync fed from shared memory with few warps resident, far above both
+the tensor cores' rate and the bytes, scratch included (``PERF.md``).
+It is built with ``nvcc`` for ``sm_90a`` at first use
+(:mod:`repro_torch.kernels.build`), loaded with ``ctypes`` and launched
+on PyTorch's current stream.
 
 :func:`ssd_kernel` launches the kernel for CUDA tensors and raises on
 anything it does not take; for CPU tensors it runs
@@ -27,8 +35,8 @@ from .ops import ssd_scan
 
 #: Largest head dim and state dim the kernel takes.
 MAX_P, MAX_N = 64, 128
-#: Rows of one tile of the chunk's product, and threads of a block.
-TILE, THREADS = 64, 256
+#: Rows of one tile of a chunk (t or u).
+TILE = 64
 #: Shared memory one block may use on the card, in bytes.
 MAX_SMEM = 232448
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -69,10 +77,26 @@ def chunk_len(S: int, chunk: int) -> int:
     return L
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def smem_bytes(N: int, P: int, L: int) -> int:
-    """Dynamic shared memory of one block (as ``ssd.cu`` lays it out)."""
-    return 4 * (N * P + 2 * L + TILE * (N + 1) + N * (TILE + 1) + TILE * P
-                + TILE * (TILE + 1))
+    """Dynamic shared memory of the largest of the kernel's tiled passes
+    (as ``ssd.cu`` lays them out: ``state_smem``, ``gram_smem``,
+    ``out_smem``)."""
+    xst, cst = _pad16(P) + 8, _pad16(N) + 4
+    state = 3 * L + 32 + TILE * (_pad16(N) + 8) + TILE * xst
+    gram = 2 * TILE * cst
+    out = 2 * L + 32 + max(TILE * cst + _pad16(N) * xst,
+                           TILE * (TILE + 4) + TILE * xst)
+    return 4 * max(state, gram, out)
+
+
+def _pairs(L: int) -> int:
+    """(t tile, u tile <= t tile) pairs of a chunk of ``L`` tokens."""
+    n = -(-L // TILE)
+    return n * (n + 1) // 2
 
 
 def _check(x, dt, A, Bm, Cm, D) -> None:
@@ -88,32 +112,49 @@ def _check(x, dt, A, Bm, Cm, D) -> None:
                              f"{want[name]} for x {tuple(x.shape)}")
 
 
-def launch(lib, x, dt, A, Bm, Cm, D, y, *, L: int, stream) -> int:
+def launch(lib, x, dt, A, Bm, Cm, D, y, states, decay, gram, *, L: int,
+           stream) -> tuple:
     """One launch writing ``y`` on ``stream`` (a ``cudaStream_t`` as an
     int) with chunks of ``L`` tokens; ``A`` and ``D`` float32 and
-    contiguous.  Returns the blocks it launched; raises when refused."""
+    contiguous; ``states``, ``decay`` and ``gram`` the float32 scratch
+    of :func:`scratch`.  Returns the blocks of its four launches; raises
+    when one is refused."""
     B, S, H, P = x.shape
     ints = [_DTYPES[x.dtype], B, S, H, P, Bm.shape[-1], L,
             *x.stride()[:3], *dt.stride(), *y.stride()[:3],
             *Bm.stride()[:2], *Cm.stride()[:2]]
-    ptrs = (ctypes.c_void_p * 7)(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                                 Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
-                                 y.data_ptr())
-    grid = ctypes.c_longlong()
+    ptrs = (ctypes.c_void_p * 10)(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                  Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+                                  y.data_ptr(), states.data_ptr(),
+                                  decay.data_ptr(), gram.data_ptr())
+    blocks = (ctypes.c_longlong * 4)()
     rc = lib.ssd_forward(ptrs, (ctypes.c_longlong * len(ints))(*ints),
-                         stream, ctypes.byref(grid))
+                         stream, blocks)
     if rc != 0:
         raise RuntimeError(f"ssd launch failed: "
                            f"{lib.ssd_error_string(rc).decode()} ({rc})")
-    return grid.value
+    return tuple(blocks)
+
+
+def scratch(x, N: int, L: int):
+    """The float32 buffers one launch passes between its passes: the
+    chunk states (B, H, S / L, N, P), their decays (B, H, S / L) and the
+    Gram tiles C_t B_u^T (B, S / L, pairs, 64, 64)."""
+    B, S, H, P = x.shape
+    nc = S // L if L else 0
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((B, H, nc, N, P), **f32),
+            torch.empty((B, H, nc), **f32),
+            torch.empty((B, nc, _pairs(L) if L else 0, TILE, TILE), **f32))
 
 
 def prepare(x, dt, A, Bm, Cm, D, *, chunk: int):
-    """Check a call on CUDA tensors and allocate its output.  Returns
-    ``(y, run)``: ``run()`` launches the kernel once on the current
-    stream, writing ``y``, and returns the blocks it launched.  Raises on
-    anything the kernel does not take.  :func:`ssd_kernel` launches
-    through it; a timing loop may call ``run`` alone."""
+    """Check a call on CUDA tensors and allocate its output and scratch.
+    Returns ``(y, run)``: ``run()`` launches the kernel once on the
+    current stream, writing ``y``, and returns the blocks of its four
+    launches.  Raises on anything the kernel does not take.
+    :func:`ssd_kernel` launches through it; a timing loop may call
+    ``run`` alone."""
     _check(x, dt, A, Bm, Cm, D)
     tensors = (x, dt, A, Bm, Cm, D)
     if not (x.device.type == "cuda"
@@ -144,12 +185,14 @@ def prepare(x, dt, A, Bm, Cm, D, *, chunk: int):
     A = A.to(torch.float32).contiguous()
     D = D.to(torch.float32).contiguous()
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    bufs = scratch(x, N, L)
     lib = library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
-    def run() -> int:
+    def run() -> tuple:
         with torch.cuda.device(x.device):
-            return launch(lib, x, dt, A, Bm, Cm, D, y, L=L, stream=stream)
+            return launch(lib, x, dt, A, Bm, Cm, D, y, *bufs, L=L,
+                          stream=stream)
 
     return y, run
 

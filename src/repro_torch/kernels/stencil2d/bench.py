@@ -22,12 +22,16 @@ from . import kernel as k1
 MAIN_PATH = (("normalization", {"j": 4096, "i": 2048}),
              ("hydro1d", {"j": 2048, "i": 4096}),
              ("cosmo", {"k": 64, "j": 512, "i": 512}))
-#: The programs with plane windows, which run unchunked: heat3d at the
-#: size of the repository's lifted benchmark (benchmarks/lifted.py) and
-#: at cosmo's, and advect4d_halo (no benchmark of its own) at the same
-#: 64 MiB of input split over four ``l`` tiles.
+#: The programs with plane windows, which run in plane chunks times row
+#: tiles: heat3d at the size of the repository's lifted benchmark
+#: (benchmarks/lifted.py) and at cosmo's, heat3d_stage (a producer plane
+#: window) and heat3d_residual_norm (an accumulator over the planes) at
+#: cosmo's, and advect4d_halo (no benchmark of its own) at the same 64 MiB
+#: of input split over four ``l`` tiles.
 PLANE_WINDOW_PATH = (("heat3d", {"k": 6, "j": 32, "i": 256}),
                      ("heat3d", {"k": 64, "j": 512, "i": 512}),
+                     ("heat3d_stage", {"k": 64, "j": 512, "i": 512}),
+                     ("heat3d_residual_norm", {"k": 64, "j": 512, "i": 512}),
                      ("advect4d_halo", {"l": 4, "k": 16, "j": 512,
                                         "i": 512}))
 RUNS = 20

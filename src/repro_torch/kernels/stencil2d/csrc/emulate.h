@@ -5,14 +5,16 @@
 // -std=c++20 -DHFAV_EMULATE) and tested on a machine without a GPU.
 // Blocks run one after another; the threads of a block are host threads
 // that meet at a std::barrier in __syncthreads(), so a missing barrier
-// shows up as a wrong result.  Never used for a GPU build.
+// shows up as a wrong result, and each block's shared memory starts as
+// NaNs, so does a read of a word no thread of the block wrote.  Never
+// used for a GPU build.
 //
 // Warps.  Threads 32w .. 32w + 31 of a block form warp w, with a barrier
 // of its own (__syncwarp) and one exchange slot per lane.  A warp
-// collective -- __shfl_xor_sync, ldmatrix (x4, plain or .trans) and
-// mma.sync m16n8k16 bf16 -- writes each lane's operand to its slot, meets
-// the warp at its barrier, reads what it needs from the other lanes'
-// slots, and meets it again before any slot is reused; the operands go
+// collective -- __shfl_xor_sync, ldmatrix (x4, plain or .trans), mma.sync
+// m16n8k16 bf16 and m16n8k8 tf32 -- writes each lane's operand to its
+// slot, meets the warp at its barrier, reads what it needs from the other
+// lanes' slots, and meets it again before any slot is reused; the operands go
 // in and come out in the fragment layouts of the PTX ISA, so a kernel's
 // fragment indexing is tested as written.  cp.async is an immediate
 // 16-byte copy (zero-filled past the source size) whose commit and wait
@@ -20,14 +22,17 @@
 // the card's conformance runs can.
 #pragma once
 
+#include <algorithm>
 #include <barrier>
 #include <cstring>
 #include <deque>
+#include <iterator>
 #include <thread>
 #include <vector>
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(...)
@@ -187,6 +192,51 @@ inline void hfav_mma_bf16(float d[4], const unsigned a[4], const unsigned b[2],
   }
 }
 
+// cvt.rna.tf32.f32: round to TF32 (10 explicit mantissa bits) to nearest,
+// ties away from zero; the result is a float32 bit pattern whose low 13
+// bits are zero.
+inline unsigned hfav_tf32(float v) {
+  unsigned u;
+  std::memcpy(&u, &v, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return u;  // NaN stays NaN
+  return (u + 0x1000u) & 0xffffe000u;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: d = A B + c with
+// A 16 x 8, B 8 x 8, operands float32 bit patterns of which the tensor
+// core reads the TF32 part (the low 13 bits are ignored).  Lane l, with
+// g = l / 4 and t = l % 4, holds A rows g (registers 0, 2) and g + 8 (1,
+// 3) at columns t (0, 1) and t + 4 (2, 3); B rows t (register 0) and
+// t + 4 (1) of column g; and c, d as for the bf16 product.  Products of
+// two TF32 values are exact in float32; the sum is taken in k order
+// after c.
+inline void hfav_mma_tf32(float d[4], const unsigned a[4], const unsigned b[2],
+                          const float c[4]) {
+  unsigned ops[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  hfav_publish(ops, sizeof ops);
+  auto tf = [](unsigned w) { return __uint_as_float(w & 0xffffe000u); };
+  float A[16][8], B[8][8];
+  for (unsigned l = 0; l < 32; ++l) {
+    unsigned o[6];
+    std::memcpy(o, hfav_peer(l), sizeof o);
+    const unsigned g = l / 4, t = l % 4;
+    A[g][t] = tf(o[0]);
+    A[g + 8][t] = tf(o[1]);
+    A[g][t + 4] = tf(o[2]);
+    A[g + 8][t + 4] = tf(o[3]);
+    B[t][g] = tf(o[4]);
+    B[t + 4][g] = tf(o[5]);
+  }
+  __syncwarp();
+  const unsigned g = hfav_lane() / 4, t = hfav_lane() % 4;
+  for (unsigned e = 0; e < 4; ++e) {
+    const unsigned row = g + 8 * (e / 2), col = 2 * t + e % 2;
+    float s = c[e];
+    for (unsigned k = 0; k < 8; ++k) s += A[row][k] * B[k][col];
+    d[e] = s;
+  }
+}
+
 // cp.async.cg.shared.global, 16 bytes, the rest zero past `src_bytes`
 inline void hfav_cp_async16(void* dst, const void* src, int src_bytes) {
   std::memset(dst, 0, 16);
@@ -202,6 +252,10 @@ int emulate_launch(Kernel kernel, const Params& prm, long long nblocks,
   hfav_slots = slots.data();
   for (long long b = 0; b < nblocks; ++b) {
     blockIdx.x = static_cast<unsigned>(b);
+    // a block finds no value of an earlier block in shared memory: every
+    // word starts as a NaN, so a read before a write shows in the result
+    std::fill(std::begin(hfav_smem), std::end(hfav_smem),
+              __int_as_float(0x7fc00000u));
     std::barrier<> bar(threads);
     hfav_block_barrier = &bar;
     std::deque<std::barrier<>> warps;

@@ -15,20 +15,35 @@
 // Decomposition.  A Pallas TPU grid runs in order and carries VMEM state
 // from step to step; CUDA blocks run in parallel.  So a block walks its
 // rows of j in a loop (threads stride over the columns of each row), the
-// outer dims that carry state (the plane dim of a call with plane
-// windows, and every outer dim an accumulator spans) are walked in order
-// inside the block, and the other outer tiles go across blocks.  Calls
-// without plane windows also split the row range into chunks, one block
-// each: a block starts `prime` steps before its first owned step so its
-// rolling windows hold exactly what an in-order run would hold, writes
-// outputs and combines accumulators only at steps it owns (each step has
-// exactly one owner), and leaves one partial accumulator row per chunk,
+// outer dims that an accumulator spans are walked in order inside the
+// block, and the other outer tiles go across blocks.  Both the row range
+// and, in a call with plane windows, the plane dim (the last outer dim)
+// are cut into chunks, one block for each pair of a plane chunk and a row
+// chunk (a row tile of those planes).  A block starts its walk early so
+// that its windows hold what an in-order run would hold at its first
+// owned step: `prime` rows before its first owned row (the rows its
+// rolling windows, and its plane windows' reads behind their writes, look
+// back), and the plane prime (the planes its plane windows' reads look
+// back behind their writes) before its first owned plane.  So a producer
+// plane window recomputes the rows of its halo inside the block
+// (overlapped tiling).  A block writes outputs and combines accumulators
+// only at the steps it owns, and each (plane, row) step has exactly one
+// owner; it leaves one partial accumulator row per block and kept tile,
 // which the host folds in block order.
+//
+// Every window of a block -- rolling rows, locals, accumulators and the
+// plane windows of its row tile -- lives in one per-block region: shared
+// memory when it fits, else this block's slice of a global scratch.  A
+// plane window holds `p_stages` planes of its tile's rows only, addressed
+// by a floor-mod slot of the plane and of the row (the tile plus the
+// reach of its reads fits in the slots), so contracted planes never go
+// to device memory when the region is in shared memory.
 //
 // Bound: every call streams each input row once and writes each output
 // row once, with a handful of flops per element, so it is bound by
-// device-memory bytes.  Windows live in shared memory when they fit
-// (one row per input per step from HBM, neighbours from shared memory).
+// device-memory bytes.  Windows in shared memory make a row read at
+// several offsets cost one trip to device memory; the chunks' primed
+// steps read again what a neighbouring block reads.
 #pragma once
 
 #ifdef HFAV_EMULATE
@@ -83,25 +98,25 @@ __device__ __forceinline__ void fill_row(float* __restrict__ row, int n,
   for (int c = threadIdx.x; c < n; c += blockDim.x) row[c] = v;
 }
 
-// The row steps one block walks for chunk `chunk` of length `len`:
-// [first, end), of which it owns [own, end).  `first` lies `prime` steps
-// before `own` (clamped to the tile start), which refills every rolling
-// window before the first owned step.
+// The steps one block walks for chunk `chunk` of length `len` of a range
+// of `steps`: [first, end), of which it owns [own, end).  `first` lies
+// `prime` steps before `own` (clamped to the range start), which refills
+// every window before the first owned step.
 struct Chunk {
   long long first, own, end;
 };
 
 __device__ __forceinline__ Chunk chunk_of(long long chunk, long long len,
-                                          long long steps_j,
+                                          long long steps,
                                           long long prime) {
   Chunk c;
   c.own = chunk * len;
-  c.end = c.own + len < steps_j ? c.own + len : steps_j;
+  c.end = c.own + len < steps ? c.own + len : steps;
   c.first = c.own - prime > 0 ? c.own - prime : 0;
   return c;
 }
 
-// The region of per-block scratch: shared memory when the call's
+// The region of per-block scratch: shared memory when the block's
 // windows fit there, else this block's slice of the global scratch.
 __device__ __forceinline__ float* fast_scratch(float* smem, float* gscratch,
                                                long long use_smem,

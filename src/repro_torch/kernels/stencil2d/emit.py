@@ -17,9 +17,15 @@ tracer:
   at run time.
 * :class:`CallLayout` fixes what a plan needs at run time: which outer
   dims go across blocks and which a block walks in order, how the row
-  range splits into chunks, where each window lives, and the order of
-  the kernel's pointer and size parameters.  :meth:`CallLayout.concretize`
-  gives their values for one problem size.
+  range splits into chunks and, in a call with plane windows, the plane
+  dim into plane chunks (one block per pair: a plane chunk times a row
+  tile), how far a block's walk starts before its first owned plane and
+  row (the reach of the windows' reads behind their writes), where each
+  window lives (a plane
+  window holds only its block's row tile, in shared memory when the
+  block's windows fit), and the order of the kernel's pointer and size
+  parameters.  :meth:`CallLayout.concretize` gives their values for one
+  problem size, choosing the chunk lengths for a full wave of blocks.
 
 Sizes are runtime parameters, so one source (and one build) serves
 every problem size of a plan.
@@ -238,6 +244,22 @@ class Launch:
     nchunks: int
     ni: int
     sizes: tuple[int, ...]
+    npchunks: int = 1
+    chunk_len: int = 1
+    pchunk_len: int = 1
+
+
+#: Registers a thread may hold under ``__launch_bounds__(MAX_THREADS)``
+#: (the bound :meth:`CallLayout.concretize` assumes per block), the
+#: registers and blocks of one SM, and the bytes of shared memory the
+#: runtime reserves per block.
+REGS_PER_THREAD = 64
+REGS_PER_SM = 65536
+BLOCKS_PER_SM = 32
+SMEM_RESERVED = 1024
+#: Global scratch the planner of a plane-window launch may ask for when
+#: its windows do not fit shared memory (bytes).
+MAX_GLOBAL_SCRATCH = 1 << 30
 
 
 class CallLayout:
@@ -270,56 +292,159 @@ class CallLayout:
                 for kind, tgt in targets:
                     if kind == "local":
                         self.local_w.setdefault(str(tgt), step.out_w_off)
-        # per-block scratch: shared memory (or a global slice) for rows,
-        # always a global slice for whole planes
+        # one per-block region (shared memory, or a global slice): rolling
+        # rows, locals, accumulators, then the plane windows of a row tile
+        self.planes = [("plane", i.name) for i in self.plane_ins] \
+            + [("pwin", w.name) for w in self.plane_wins]
         self.fast = [("win", w.name) for w in self.roll_wins] \
             + [("local", n) for n in self.local_w] \
-            + [("acc", a.name) for a in call.accs]
-        self.slow = [("plane", i.name) for i in self.plane_ins] \
-            + [("pwin", w.name) for w in self.plane_wins]
-        self.planar = bool(self.slow)
+            + [("acc", a.name) for a in call.accs] + self.planes
+        self.planar = bool(self.planes)
+        #: the plane dim, cut into plane chunks across blocks
+        self.pdim = n_out - 1 if self.planar else None
         seq = set()
         if self.planar:
-            seq.add(n_out - 1)
+            seq.add(self.pdim)
         for a in call.accs:
             seq.update(range(a.n_kept, n_out))
         self.seq_dims = sorted(seq)
+        #: outer dims a block walks whole, in order
+        self.walk_dims = [d for d in self.seq_dims if d != self.pdim]
         self.indep_dims = [d for d in range(n_out) if d not in seq]
-        # steps a chunk's block runs before its first owned step: at
-        # least the rows every rolling window can look back
-        self.prime = sum(w.stages for w in self.roll_wins)
+        # how far each plane window's reads reach behind its writes (rows,
+        # planes), and the rows one tile touches
+        self.span: dict[tuple[str, str], int] = {}
+        back = pback = 0
+        for key in self.planes:
+            lead, p_lead, j_lo, src = self._plane_writer(key)
+            reads = [r for s in call.steps for r in s.reads if r.src == src]
+            if any(r.j_off > lead for r in reads):
+                raise PlanUnsupported(
+                    f"call {call.name}: plane window {key[1]} is read "
+                    f"below the row it is written at; a row tile would "
+                    f"have to walk past its last row")
+            offs = [lead - j_lo] + [r.j_off - j_lo for r in reads]
+            self.span[key] = max(offs) - min(offs)
+            back += max([0] + [lead - r.j_off for r in reads])
+            pback += max([0] + [p_lead - r.p_off for r in reads])
+        # row steps a chunk's block runs before its first owned row: the
+        # rows every rolling window can look back, and every plane
+        # window's reads behind its writes; planes it runs before its
+        # first owned plane
+        self.prime = sum(w.stages for w in self.roll_wins) + back
+        self.pprime = pback
         self.int_names = (
-            ["ni", "nj", "steps_j", "chunk_len", "nchunks", "nblocks",
-             "use_smem", "fast_floats", "slow_floats"]
+            ["ni", "nj", "steps_j", "chunk_len", "nchunks", "pchunk_len",
+             "npchunks", "nblocks", "use_smem", "fast_floats"]
             + [f"osz{d}" for d in range(n_out)]
             + [f"g{d}" for d in range(n_out)]
             + [f"off_f{m}" for m in range(len(self.fast))]
-            + [f"off_s{m}" for m in range(len(self.slow))])
+            + [f"prows{m}" for m in range(len(self.planes))])
         self.n_ptrs = len(call.inputs) + len(call.outputs) + 1
 
-    def _fast_floats(self, kind: str, name: str, ni: int) -> int:
+    def _plane_writer(self, key):
+        """``(row lead, plane lead, j_lo, read source)`` of a plane
+        window: where its writes land relative to the canonical point."""
+        kind, name = key
+        if kind == "plane":
+            i = next(i for i in self.plane_ins if i.name == name)
+            return i.lead, i.p_lead, i.j_lo, f"in_{name}"
+        w = next(w for w in self.plane_wins if w.name == name)
+        lead = next(s.lead for s in self.call.steps for targets in s.writes
+                    for k, t in targets if k == "buf" and str(t) == name)
+        return lead, w.p_lead, w.j_lo, name
+
+    def _floats(self, kind: str, name: str, ni: int, rows: int) -> int:
         if kind == "win":
             w = next(w for w in self.roll_wins if w.name == name)
             return w.stages * (ni + w.i_hi - w.i_lo)
         if kind == "local":
             return ni + self.local_w[name]
-        a = next(a for a in self.call.accs if a.name == name)
-        return ni + a.w_off
+        if kind == "acc":
+            a = next(a for a in self.call.accs if a.name == name)
+            return ni + a.w_off
+        w = next(w for w in self.plane_ins + self.plane_wins
+                 if w.name == name)
+        return w.p_stages * rows * (ni + w.i_hi - w.i_lo)
 
-    def _slow_floats(self, kind: str, name: str, nj: int, ni: int) -> int:
-        if kind == "plane":
-            i = next(i for i in self.plane_ins if i.name == name)
-            return i.p_stages * (nj + i.j_hi - i.j_lo) * (ni + i.i_hi - i.i_lo)
-        w = next(w for w in self.plane_wins if w.name == name)
-        return w.p_stages * (nj + w.j_hi - w.j_lo) * (ni + w.i_hi - w.i_lo)
+    def plane_reduced(self, acc) -> bool:
+        """Whether ``acc`` sums over the plane dim, so each plane chunk
+        leaves a partial row of its own."""
+        return self.planar and self.pdim >= acc.n_kept
+
+    def _region(self, ni: int, walk: int):
+        """(floats, offsets, plane-window rows) of one block's region
+        when it walks at most ``walk`` rows."""
+        offs, total, prows = [], 0, []
+        for kind, name in self.fast:
+            rows = 0
+            if (kind, name) in self.span:
+                rows = walk + self.span[(kind, name)]
+                prows.append(rows)
+            offs.append(total)
+            total += _round4(self._floats(kind, name, ni, rows))
+        return total, offs, prows
+
+    def _resident(self, threads: int, fast: int) -> int:
+        """Blocks one SM holds, by threads, registers and shared memory."""
+        n = min(THREADS_PER_SM // threads, BLOCKS_PER_SM,
+                REGS_PER_SM // (threads * REGS_PER_THREAD))
+        if fast * 4 <= SMEM_LIMIT:
+            n = min(n, SMEM_PER_SM // (fast * 4 + SMEM_RESERVED))
+        return max(n, 1)
+
+    def _plane_tiles(self, steps_j: int, gp: int, n_indep: int, n_walk: int,
+                     ni: int, threads: int, sms: int, chunk, plane_chunk):
+        """The (row-chunk, plane-chunk) lengths of a plane-window launch:
+        the forced ones, else the pair whose walk takes the fewest row
+        steps in waves of resident blocks (then the fewest row steps in
+        all, then the most blocks, which hide more latency where an SM
+        holds more of them than assumed), preferring windows in shared
+        memory."""
+        def lengths(forced, n):
+            if forced is not None:
+                if int(forced) < 1:
+                    raise ValueError(f"chunk length must be >= 1, got "
+                                     f"{forced}")
+                return [int(forced)]
+            out = {n}
+            k = 1
+            while k < n:
+                out.add(k)
+                k *= 2
+            return sorted(out)
+
+        best = None
+        for clen in lengths(chunk, steps_j):
+            walk = min(clen + self.prime, steps_j)
+            fast = self._region(ni, walk)[0]
+            smem = fast * 4 <= SMEM_LIMIT
+            per_sm = self._resident(threads, fast)
+            for plen in lengths(plane_chunk, gp):
+                nblocks = n_indep * -(-steps_j // clen) * -(-gp // plen)
+                if not smem and nblocks * fast * 4 > MAX_GLOBAL_SCRATCH \
+                        and (chunk is None or plane_chunk is None):
+                    continue
+                per_block = walk * min(plen + self.pprime, gp) * n_walk
+                waves = -(-nblocks // (sms * per_sm))
+                key = (not smem, waves * per_block, nblocks * per_block,
+                       -nblocks)
+                if best is None or key < best[0]:
+                    best = (key, clen, plen)
+        if best is None:  # nothing fits: one block per independent tile
+            return steps_j, gp
+        return best[1], best[2]
 
     def concretize(self, sizes: tuple[int, ...], chunk=None,
-                   sms: int = H100_SMS) -> Launch:
+                   sms: int = H100_SMS, plane_chunk=None) -> Launch:
         """The launch for ``sizes`` = ``(*outer_sizes, Nj, Ni)`` on a
-        card with ``sms`` SMs.  ``chunk`` is the row-chunk length; by
-        default the rows split into enough chunks for one full wave of
-        resident blocks (as many as shared memory and threads let each
-        SM hold).  Calls with plane windows run unchunked."""
+        card with ``sms`` SMs.  ``chunk`` is the row-chunk length (a row
+        tile of a call with plane windows) and ``plane_chunk`` the
+        plane-chunk length.  By default a call without plane windows
+        splits its rows into enough chunks for one full wave of resident
+        blocks (as many as shared memory and threads let each SM hold);
+        a call with plane windows takes the row tiles and plane chunks
+        that :meth:`_plane_tiles` picks."""
         call = self.call
         n_out = call.n_outer
         *outer, nj, ni = sizes
@@ -327,47 +452,52 @@ class CallLayout:
                     for d in range(n_out))
         steps_j = max(0, nj + call.x_hi_off - call.x_lo)
         n_indep = math.prod(gsz[d] for d in self.indep_dims)
-        offs_f, fast = [], 0
-        for kind, name in self.fast:
-            offs_f.append(fast)
-            fast += _round4(self._fast_floats(kind, name, ni))
-        offs_s, slow = [], 0
-        for kind, name in self.slow:
-            offs_s.append(slow)
-            slow += _round4(self._slow_floats(kind, name, nj, ni))
-        use_smem = fast * 4 <= SMEM_LIMIT
-        smem_bytes = fast * 4 if use_smem else 0
         threads = min(MAX_THREADS, max(32, -(-ni // 64) * 32))
-        if self.planar or steps_j == 0:
+        gp = gsz[self.pdim] if self.planar else 1
+        pchunk_len = max(gp, 1)
+        if steps_j == 0 or gp == 0:
             chunk_len = max(steps_j, 1)
+        elif self.planar:
+            n_walk = math.prod(gsz[d] for d in self.walk_dims)
+            chunk_len, pchunk_len = self._plane_tiles(
+                steps_j, gp, n_indep, n_walk, ni, threads, sms, chunk,
+                plane_chunk)
         elif chunk is None:
+            fast = self._region(ni, 0)[0]
             per_sm = min(THREADS_PER_SM // threads,
-                         SMEM_PER_SM // (smem_bytes + 1024))
+                         SMEM_PER_SM // (fast * 4 * (fast * 4 <= SMEM_LIMIT)
+                                         + SMEM_RESERVED))
             want = -(-sms * max(per_sm, 1) // max(n_indep, 1))
             chunk_len = -(-steps_j // min(steps_j, want))
         else:
             if int(chunk) < 1:
                 raise ValueError(f"chunk length must be >= 1, got {chunk}")
             chunk_len = int(chunk)
+        walk = min(chunk_len + self.prime, steps_j)
+        fast, offs_f, prows = self._region(ni, walk)
+        use_smem = fast * 4 <= SMEM_LIMIT
+        smem_bytes = fast * 4 if use_smem else 0
         nchunks = -(-steps_j // chunk_len)
-        nblocks = n_indep * nchunks
+        npchunks = -(-gp // pchunk_len)
+        nblocks = n_indep * nchunks * npchunks
         vals = dict(ni=ni, nj=nj, steps_j=steps_j, chunk_len=chunk_len,
-                    nchunks=nchunks, nblocks=nblocks, use_smem=int(use_smem),
-                    fast_floats=fast, slow_floats=slow)
+                    nchunks=nchunks, pchunk_len=pchunk_len,
+                    npchunks=npchunks, nblocks=nblocks,
+                    use_smem=int(use_smem), fast_floats=fast)
         for d in range(n_out):
             vals[f"osz{d}"] = outer[d]
             vals[f"g{d}"] = gsz[d]
         for m, o in enumerate(offs_f):
             vals[f"off_f{m}"] = o
-        for m, o in enumerate(offs_s):
-            vals[f"off_s{m}"] = o
+        for m, r in enumerate(prows):
+            vals[f"prows{m}"] = r
         return Launch(
             ints=tuple(int(vals[n]) for n in self.int_names),
             nblocks=nblocks, threads=threads, smem_bytes=smem_bytes,
-            scratch_floats=(0 if use_smem else nblocks * fast)
-            + nblocks * slow,
+            scratch_floats=0 if use_smem else nblocks * fast,
             gsz=gsz, steps_j=steps_j, nchunks=nchunks, ni=ni,
-            sizes=tuple(sizes))
+            sizes=tuple(sizes), npchunks=npchunks, chunk_len=chunk_len,
+            pchunk_len=pchunk_len)
 
 
 # ---------------------------------------------------------------------------
@@ -394,14 +524,21 @@ def emit_source(call: CallPlan) -> str:
     pwin_of = {w.name: w for w in lay.plane_wins}
     acc_of = {a.name: a for a in call.accs}
     fptr = {(k, n): f"f{m}_{_ident(n)}" for m, (k, n) in enumerate(lay.fast)}
-    sptr = {(k, n): f"s{m}_{_ident(n)}" for m, (k, n) in enumerate(lay.slow)}
+    prows = {key: f"prows{m}" for m, key in enumerate(lay.planes)}
     last = f"op{n_out - 1}"
+    pd = lay.pdim
 
     def width(delta: int) -> str:
         return f"(ni + ({delta}))"
 
     def height(delta: int) -> str:
         return f"(nj + ({delta}))"
+
+    def plane_row(key, p_stages: int, plane: str, row: str) -> str:
+        """Offset, in rows, of ``row`` of ``plane`` in a plane window of
+        a row tile: floor-mod slots of both."""
+        return (f"(hfav::slot({plane}, {p_stages}) * {prows[key]} + "
+                f"hfav::slot({row}, {prows[key]}))")
 
     # -- kernel bodies -------------------------------------------------------
     bodies: dict[int, str] = {}
@@ -433,6 +570,8 @@ def emit_source(call: CallPlan) -> str:
     w("  long long blk = blockIdx.x;")
     w("  const long long chunk = blk % nchunks;")
     w("  blk /= nchunks;")
+    w("  const long long pchunk = blk % npchunks;")
+    w("  blk /= npchunks;")
     for d in range(n_out):
         w(f"  long long o{d} = 0;")
     for d in reversed(lay.indep_dims):
@@ -441,38 +580,46 @@ def emit_source(call: CallPlan) -> str:
     w(f"  float* const gscratch = P.p[{gs_ptr}];")
     w("  float* const fast = hfav::fast_scratch(hfav_smem, gscratch, "
       "use_smem, fast_floats);")
-    w("  float* const slow = gscratch + (use_smem ? 0 : nblocks * "
-      "fast_floats) + (long long)blockIdx.x * slow_floats;")
     for m, key in enumerate(lay.fast):
         w(f"  float* const {fptr[key]} = fast + off_f{m};")
-    for m, key in enumerate(lay.slow):
-        w(f"  float* const {sptr[key]} = slow + off_s{m};")
     for i in call.inputs:
         if i.scalar:
             w(f"  const float sc{in_idx[i.name]} = P.p[{in_idx[i.name]}][0];")
     w(f"  const hfav::Chunk ch = hfav::chunk_of(chunk, chunk_len, steps_j, "
       f"{lay.prime});")
-    nseq = " * ".join(f"g{d}" for d in lay.seq_dims) or "1"
-    w(f"  const long long nseq = {nseq};")
-    w("  for (long long sq = 0; sq < nseq; ++sq) {")
-    if lay.seq_dims:
+    if lay.planar:
+        w(f"  const hfav::Chunk pc = hfav::chunk_of(pchunk, pchunk_len, "
+          f"g{pd}, {lay.pprime});")
+    nwalk = " * ".join(f"g{d}" for d in lay.walk_dims) or "1"
+    w(f"  const long long nwalk = {nwalk};")
+    w("  for (long long sq = 0; sq < nwalk; ++sq) {")
+    if lay.walk_dims:
         w("    long long rest = sq;")
-        for d in reversed(lay.seq_dims):
+        for d in reversed(lay.walk_dims):
             w(f"    o{d} = rest % g{d};")
             w(f"    rest /= g{d};")
+    if lay.planar:
+        w(f"    for (o{pd} = pc.first; o{pd} < pc.end; ++o{pd}) {{")
+    else:
+        w("    {")
     for d in range(n_out):
         w(f"    const long long op{d} = o{d} + ({call.outer_lo[d]});")
     outer_lin = _lin([f"o{d}" for d in range(n_out)],
                      [f"g{d}" for d in range(n_out)])
     w("    for (long long jid = ch.first; jid < ch.end; ++jid) {")
-    w("      const bool own = jid >= ch.own;")
+    own = "jid >= ch.own"
+    if lay.planar:
+        own += f" && o{pd} >= pc.own"
+    w(f"      const bool own = {own};")
     w(f"      const long long x = jid + ({call.x_lo});")
 
     # 0. identity-initialize accumulators at the first step of a
     # block's walk through each kept tile
     for a in call.accs:
-        conds = ["jid == ch.first"] + [f"o{d} == 0" for d in lay.seq_dims
+        conds = ["jid == ch.first"] + [f"o{d} == 0" for d in lay.walk_dims
                                        if d >= a.n_kept]
+        if lay.plane_reduced(a):
+            conds.append(f"o{pd} == pc.first")
         w(f"      if ({' && '.join(conds)}) "
           f"hfav::fill_row({fptr[('acc', a.name)]}, "
           f"(int){width(a.w_off)}, {c_float(a.init)});")
@@ -495,9 +642,10 @@ def emit_source(call: CallPlan) -> str:
               f"{npl} - 1);")
         w(f"        const float* src = P.p[{k}] + (pl * {ih} + r) * {iw};")
         if i.plane:
-            w(f"        hfav::stream_row({sptr[('plane', i.name)]} + "
-              f"(hfav::slot({last} + ({i.p_lead}), {i.p_stages}) * {ih} + r)"
-              f" * {iw}, src, (int){iw});")
+            key = ("plane", i.name)
+            row = plane_row(key, i.p_stages, f"{last} + ({i.p_lead})", "r")
+            w(f"        hfav::stream_row({fptr[key]} + {row} * {iw}, src, "
+              f"(int){iw});")
         else:
             w(f"        hfav::stream_row({fptr[('win', 'in_' + i.name)]} + "
               f"hfav::slot(x + ({i.lead}), {i.stages}) * {iw}, src, "
@@ -521,19 +669,23 @@ def emit_source(call: CallPlan) -> str:
             elif rd.src.startswith("in_") and rd.src[3:] in ispec_of \
                     and ispec_of[rd.src[3:]].plane:
                 i = ispec_of[rd.src[3:]]
+                key = ("plane", i.name)
                 ih, iw = height(i.j_hi - i.j_lo), width(i.i_hi - i.i_lo)
-                w(f"        const float* rd{ri} = {sptr[('plane', i.name)]} + "
-                  f"(hfav::slot({last} + ({rd.p_off}), {i.p_stages}) * {ih}"
-                  f" + hfav::clamp(x + ({rd.j_off - i.j_lo}), 0, {ih} - 1))"
-                  f" * {iw} + ({rd.col0 - i.i_lo});")
+                row = plane_row(key, i.p_stages, f"{last} + ({rd.p_off})",
+                                f"hfav::clamp(x + ({rd.j_off - i.j_lo}), 0, "
+                                f"{ih} - 1)")
+                w(f"        const float* rd{ri} = {fptr[key]} + {row} * {iw}"
+                  f" + ({rd.col0 - i.i_lo});")
                 operands.append(f"rd{ri}[c]")
             elif rd.src in pwin_of:
                 pw = pwin_of[rd.src]
+                key = ("pwin", pw.name)
                 wh, bw = height(pw.j_hi - pw.j_lo), width(pw.i_hi - pw.i_lo)
-                w(f"        const float* rd{ri} = {sptr[('pwin', pw.name)]} + "
-                  f"(hfav::slot({last} + ({rd.p_off}), {pw.p_stages}) * {wh}"
-                  f" + hfav::clamp(x + ({rd.j_off - pw.j_lo}), 0, {wh} - 1))"
-                  f" * {bw} + ({rd.col0 - pw.i_lo});")
+                row = plane_row(key, pw.p_stages, f"{last} + ({rd.p_off})",
+                                f"hfav::clamp(x + ({rd.j_off - pw.j_lo}), 0, "
+                                f"{wh} - 1)")
+                w(f"        const float* rd{ri} = {fptr[key]} + {row} * {bw}"
+                  f" + ({rd.col0 - pw.i_lo});")
                 operands.append(f"rd{ri}[c]")
             else:
                 b = roll_of[rd.src]
@@ -567,16 +719,18 @@ def emit_source(call: CallPlan) -> str:
                                        "{v};"))
                 elif kind == "buf" and tgt_name in pwin_of:
                     pw = pwin_of[tgt_name]
+                    key = ("pwin", pw.name)
                     wh, bw = height(pw.j_hi - pw.j_lo), \
                         width(pw.i_hi - pw.i_lo)
-                    w(f"        const long long seat{vi}_{ti} = x + "
+                    seat = f"seat{vi}_{ti}"
+                    w(f"        const long long {seat} = x + "
                       f"({step.lead - pw.j_lo});")
-                    w(f"        const bool ok{vi}_{ti} = seat{vi}_{ti} >= 0 "
-                      f"&& seat{vi}_{ti} < {wh};")
-                    w(f"        float* const {dst} = "
-                      f"{sptr[('pwin', pw.name)]} + (hfav::slot({last} + "
-                      f"({pw.p_lead}), {pw.p_stages}) * {wh} + seat{vi}_{ti})"
-                      f" * {bw} + ({step.out_col0 - pw.i_lo});")
+                    w(f"        const bool ok{vi}_{ti} = {seat} >= 0 "
+                      f"&& {seat} < {wh};")
+                    row = plane_row(key, pw.p_stages,
+                                    f"{last} + ({pw.p_lead})", seat)
+                    w(f"        float* const {dst} = {fptr[key]} + {row} * "
+                      f"{bw} + ({step.out_col0 - pw.i_lo});")
                     stores.append((vi, f"if (ok{vi}_{ti}) {dst}[c] = {{v}};"))
                 elif kind == "buf":
                     b = roll_of[tgt_name]
@@ -608,24 +762,33 @@ def emit_source(call: CallPlan) -> str:
         w("      __syncthreads();")
 
     # 3. dump accumulators: a block's partial row for each kept tile,
-    # after its last owned step there
+    # after its last step there (a kept plane only where the block owns
+    # it: a primed plane is another block's)
     for oi, o in enumerate(call.outputs):
         if o.acc is None:
             continue
         a = acc_of[o.acc]
         conds = ["jid == ch.end - 1"] + [f"o{d} == g{d} - 1"
-                                         for d in lay.seq_dims
+                                         for d in lay.walk_dims
                                          if d >= a.n_kept]
+        if lay.plane_reduced(a):
+            conds.append(f"o{pd} == pc.end - 1")
+            nparts, part = "nchunks * npchunks", "pchunk * nchunks + chunk"
+        else:
+            if lay.planar:
+                conds.append(f"o{pd} >= pc.own")
+            nparts, part = "nchunks", "chunk"
         kept = _lin([f"o{d}" for d in range(a.n_kept)],
                      [f"g{d}" for d in range(a.n_kept)])
         acc = fptr[("acc", a.name)]
         w(f"      if ({' && '.join(conds)}) {{")
-        w(f"        float* const part = P.p[{nin + oi}] + ({kept} * nchunks "
-          f"+ chunk) * {width(a.w_off)};")
+        w(f"        float* const part = P.p[{nin + oi}] + ({kept} * "
+          f"({nparts}) + {part}) * {width(a.w_off)};")
         w(f"        for (int c = threadIdx.x; c < (int){width(a.w_off)}; "
           f"c += blockDim.x) part[c] = {acc}[c];")
         w("      }")
     w("      __syncthreads();")
+    w("    }")
     w("    }")
     w("  }")
     w("}")

@@ -13,16 +13,18 @@ loads it with ``ctypes``, and launches it on PyTorch's current stream.
 ``build_call`` — row outputs ``(*grid, steps_j, Ni)``, carried
 accumulators ``(1, w)``, kept-prefix accumulators ``(*grid[:n_kept], w)``
 — so the shared host half assembles its outputs unchanged.  The kernel
-leaves one partial accumulator row per row chunk; the host folds them
-in block order with the plan's own combine body, as the host half folds
-lanes.
+leaves one partial accumulator row per block (and kept tile); the host
+folds them in block order with the plan's own combine body, as the host
+half folds lanes.
 
 What bounds it on the H100: every call streams each input row from
 device memory once and writes each output row once, with a few flops
-per element, so its bound is bytes over the memory rate.  Rolling
-windows live in shared memory when they fit, so a row read at several
-offsets costs one trip to device memory; row chunks give the 2-D
-programs enough blocks to fill the card.
+per element, so its bound is bytes over the memory rate.  A block's
+windows (rolling rows, and the plane windows of its row tile) live in
+shared memory when they fit, so a row read at several offsets costs one
+trip to device memory and a contracted plane never goes there; row
+chunks, and in a call with plane windows plane chunks times row tiles,
+give every program enough blocks to fill the card.
 
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
@@ -108,15 +110,18 @@ def _check_tensor(t, what: str, shape, device) -> None:
 
 
 def alloc_outputs(lay: CallLayout, run, device):
-    """The kernel's padded outputs (accumulators as per-chunk partial
-    rows) and its global scratch, on ``device``."""
+    """The kernel's padded outputs (accumulators as per-block partial
+    rows: one per row chunk, and per plane chunk where the accumulator
+    sums over the plane dim) and its global scratch, on ``device``."""
     outs = []
     for o in lay.call.outputs:
         if o.acc is None:
             shape = (*run.gsz, run.steps_j, run.ni)
         else:
             a = next(a for a in lay.call.accs if a.name == o.acc)
-            shape = (*run.gsz[:a.n_kept], run.nchunks, run.ni + a.w_off)
+            parts = run.nchunks * (run.npchunks if lay.plane_reduced(a)
+                                   else 1)
+            shape = (*run.gsz[:a.n_kept], parts, run.ni + a.w_off)
         outs.append(torch.empty(shape, dtype=torch.float32, device=device))
     scratch = torch.empty(max(run.scratch_floats, 1), dtype=torch.float32,
                           device=device)
@@ -137,7 +142,7 @@ def launch(lib, run, tensors, *, threads: int, stream) -> None:
 
 def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
     """Allocate ``run``'s outputs and scratch beside ``args``, launch the
-    kernel of ``lib`` on ``stream`` and fold each accumulator's per-chunk
+    kernel of ``lib`` on ``stream`` and fold each accumulator's per-block
     partial rows in a fixed order with the plan's combine body; returns
     the padded outputs under the reference contract."""
     global launches
@@ -158,16 +163,18 @@ def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
 
 
 def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
-               device=None, chunk=None):
+               device=None, chunk=None, plane_chunk=None):
     """Concretize one :class:`CallPlan` on the CUDA kernel.
 
     ``sizes`` is ``(*outer_sizes, Nj, Ni)``; returns ``(fn, steps_j)``
     where ``fn`` maps the call's input tensors (scalars as ``(1, 1)``,
     on one CUDA device) to one padded output per ``call.outputs`` entry
     under the reference contract.  ``chunk`` is the row-chunk length
-    (default: one full wave of resident blocks on ``device``; calls
-    with plane windows run unchunked).  The kernel is built at the
-    first call."""
+    (the row tile of a call with plane windows) and ``plane_chunk`` the
+    plane-chunk length of a call with plane windows; by default
+    :meth:`CallLayout.concretize` sizes both for at least one full wave
+    of resident blocks on ``device``.  The kernel is built at the first
+    call."""
     if dtype != torch.float32:
         raise PlanUnsupported(
             f"the CUDA stencil kernel builds for float32 only, not {dtype}")
@@ -181,7 +188,7 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     dev = torch.device(device) if device is not None else None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count \
         if dev is not None and dev.type == "cuda" else H100_SMS
-    run = lay.concretize(tuple(sizes), chunk, sms)
+    run = lay.concretize(tuple(sizes), chunk, sms, plane_chunk)
     *outer_sizes, nj, ni = sizes
     in_shapes = []
     for i in call.inputs:
@@ -220,7 +227,7 @@ register_interpreter(InterpreterSpec(
     # LayoutApply constructs (kernel.py:511-512 of the JAX package)
     capabilities=STENCIL_CAPABILITIES,
     dtypes=frozenset({torch.float32}),
-    flags=frozenset({"chunk"}),
+    flags=frozenset({"chunk", "plane_chunk"}),
     description="hand-written CUDA stencil kernel for Hopper (sm_90a): "
                 "one emitted source per CallPlan over csrc/stencil2d.cuh",
 ))

@@ -76,7 +76,8 @@ def decode_self_attention(p: dict, x_t: torch.Tensor, cfg: ArchConfig, *,
     """One-token step.  ``lengths`` counts tokens INCLUDING the new one.
 
     The new (k, v) is written at index ``lengths - 1`` of ``cache_k`` and
-    ``cache_v`` IN PLACE (the reference returns updated copies), then the
+    ``cache_v`` IN PLACE (the reference returns updated copies; a row
+    past the cache is dropped there and keeps its value here), then the
     token attends over the caches.  The caches are this layer's views of
     the model's cache tensors, so a cache from before a step is not kept.
     """
@@ -90,10 +91,17 @@ def decode_self_attention(p: dict, x_t: torch.Tensor, cfg: ArchConfig, *,
                    mrope_sections=cfg.mrope_sections)
     k = apply_rope(k, rp, theta=cfg.rope_theta,
                    mrope_sections=cfg.mrope_sections)
+    # a row past the cache keeps its old value, as the reference's
+    # scatter drops it; clamped and selected on the device, with no host
+    # read of ``lengths``
     bidx = torch.arange(B, device=x.device)
     last = (lengths - 1).long()
-    cache_k[bidx, last] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, last] = v[:, 0].to(cache_v.dtype)
+    max_seq = cache_k.shape[1]
+    keep = ((last < 0) | (last >= max_seq))[:, None, None]
+    slot = last.clamp(0, max_seq - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache[bidx, slot] = torch.where(keep, cache[bidx, slot],
+                                        new[:, 0].to(cache.dtype))
     if cfg.attn_impl == "pallas":
         # K3 reads the caches in their own dtype and rounds to x's
         o = decode_attention(q[:, 0], cache_k, cache_v, lengths,

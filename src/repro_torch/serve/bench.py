@@ -27,6 +27,12 @@ F32_PEAK = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12),
             ("H100", 67e12))
 
 
+#: Dense TF32 tensor-core peaks (FLOP/s), from the same sheets (half the
+#: sparse figures they print).
+TF32_PEAK = (("H200", 495e12), ("H100 NVL", 418e12), ("H100 PCIe", 378e12),
+             ("H100", 495e12))
+
+
 def _peak(table, name: str) -> float:
     for key, rate in table:
         if key in name:
@@ -42,6 +48,11 @@ def bf16_peak(name: str) -> float:
 def f32_peak(name: str) -> float:
     """The card's float32 rate outside the tensor cores."""
     return _peak(F32_PEAK, name)
+
+
+def tf32_peak(name: str) -> float:
+    """The card's dense TF32 tensor-core rate."""
+    return _peak(TF32_PEAK, name)
 
 
 def attention_pairs(Sq: int, Skv: int, *, causal: bool, window, q_offset: int,
@@ -102,6 +113,18 @@ def ssd_work(x, dt, Bm, Cm, D, L: int):
               + sum(t.numel() * t.element_size() for t in (dt, Bm, Cm))
               + 2 * D.numel() * 4)
     return flops, nbytes
+
+
+def ssd_scratch_bytes(x, N: int, L: int) -> int:
+    """Bytes of float32 scratch the split kernel moves between its
+    passes (not an input or output of the function): each chunk's state
+    written by its first pass, read and rewritten by the second, and read
+    by the last for every chunk but the first; each 64 x 64 Gram tile
+    C_t B_u^T written once and read by every head."""
+    Bsz, S, H, P = x.shape
+    nc, n = S // L, -(-L // 64)
+    gram = Bsz * nc * n * (n + 1) // 2 * 64 * 64
+    return 4 * (Bsz * H * N * P * (3 * nc + nc - 1) + gram * (1 + H))
 
 
 def bound_ms(flops: float, nbytes: float, flop_rate: float,

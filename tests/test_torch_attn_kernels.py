@@ -198,6 +198,87 @@ def test_emulated_warp_collectives_match_numpy(tmp_path):
                                                            ^ (1 << k)])
 
 
+TF32_SRC = r"""
+#include "emulate.h"
+struct Args {
+  const float* a;  // (16, 8)
+  const float* b;  // (8, 8)
+  const float* v;  // (64,) values to round
+  unsigned* rounded;  // (64,)
+  float* d;        // (16, 8)
+};
+void prims(const Args p) {
+  const unsigned lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  const unsigned a[4] = {hfav_tf32(p.a[g * 8 + t]),
+                         hfav_tf32(p.a[(g + 8) * 8 + t]),
+                         hfav_tf32(p.a[g * 8 + t + 4]),
+                         hfav_tf32(p.a[(g + 8) * 8 + t + 4])};
+  const unsigned b[2] = {hfav_tf32(p.b[t * 8 + g]),
+                         hfav_tf32(p.b[(t + 4) * 8 + g])};
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  hfav_mma_tf32(d, a, b, d);
+  for (unsigned e = 0; e < 4; ++e)
+    p.d[(g + 8 * (e / 2)) * 8 + 2 * t + e % 2] = d[e];
+  p.rounded[lane] = hfav_tf32(p.v[lane]);
+  p.rounded[lane + 32] = hfav_tf32(p.v[lane + 32]);
+}
+extern "C" int run_prims(const Args* p) {
+  return emulate_launch(prims, *p, 1, 32, 0);
+}
+"""
+
+
+def _tf32(v):
+    """float32 values rounded to TF32 (11 significant bits) to nearest,
+    ties away from zero, by frexp and ldexp."""
+    m, e = np.frexp(v.astype(np.float64))
+    s = m * 2.0 ** 11
+    r = np.sign(s) * np.floor(np.abs(s) + 0.5)
+    return np.ldexp(r, e - 11).astype(np.float32)
+
+
+def test_emulated_tf32_mma_matches_numpy(tmp_path):
+    """``hfav_tf32`` (cvt.rna.tf32.f32) and mma.sync m16n8k8 tf32 of
+    ``emulate.h``: rounding against numpy's, ties away from zero, and
+    the fragment layout (A rows g, g + 8 at columns t, t + 4; B rows t,
+    t + 4 of column g) against numpy's matmul of the rounded operands."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
+    src, so = tmp_path / "tf32.cc", tmp_path / "tf32.so"
+    src.write_text(TF32_SRC)
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+         "-DHFAV_EMULATE", f"-I{EMULATE_H.parent}", "-o", str(so), str(src)],
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    rng = np.random.default_rng(13)
+    a = rng.standard_normal((16, 8)).astype(np.float32)
+    b = rng.standard_normal((8, 8)).astype(np.float32)
+    ties = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11,
+                     2.0 ** -11, 0.0, 3e38], np.float32)
+    v = np.concatenate([ties, rng.standard_normal(58).astype(np.float32)
+                        * 10.0 ** rng.integers(-6, 6, 58)]).astype(np.float32)
+    rounded = np.zeros(64, np.uint32)
+    d = np.zeros((16, 8), np.float32)
+
+    class Args(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_void_p)
+                    for n in ("a", "b", "v", "rounded", "d")]
+
+    args = Args(a.ctypes.data, b.ctypes.data, v.ctypes.data,
+                rounded.ctypes.data, d.ctypes.data)
+    assert lib.run_prims(ctypes.byref(args)) == 0
+    got = rounded.view(np.float32)
+    np.testing.assert_array_equal(got, _tf32(v))
+    assert (rounded & 0x1fff == 0).all()
+    assert got[0] == 1 + 2.0 ** -10 and got[1] == -(1 + 2.0 ** -10)
+    want = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
+    np.testing.assert_allclose(d, want, rtol=1e-6, atol=1e-6)
+    # one TF32 rounding of each operand is far from float32's product
+    assert np.abs(a.astype(np.float64) @ b - want).max() > 1e-4
+
+
 # B, Sq, Skv, H, KVH, D, causal, window, q_offset; each in float32 (the
 # scalar kernel) and bf16 (the tensor-core kernel)
 EMU_ATTN_CASES = [

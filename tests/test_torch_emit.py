@@ -132,22 +132,72 @@ def test_golden_plan_sources_are_stable(name):
         assert emit_source(_plan(name).calls[kplan.calls.index(call)]) == a
 
 
+def _owners(run, lay):
+    """Each block's owned (plane, row) steps and its walk, by the
+    formulas of ``hfav::chunk_of``: ``{(pchunk, chunk): (owned steps,
+    first plane, first row)}``."""
+    gp = run.gsz[lay.pdim]
+    out = {}
+    for pc in range(run.npchunks):
+        p_own = pc * run.pchunk_len
+        p_end = min(p_own + run.pchunk_len, gp)
+        for c in range(run.nchunks):
+            own = c * run.chunk_len
+            end = min(own + run.chunk_len, run.steps_j)
+            out[pc, c] = ({(o, j) for o in range(p_own, p_end)
+                           for j in range(own, end)},
+                          max(p_own - lay.pprime, 0),
+                          max(own - lay.prime, 0))
+    return out
+
+
 def test_chunking_and_plane_calls():
-    """2-D calls split their rows into chunks; plane-window calls walk
-    their plane dim and rows in order in one block per independent
-    tile."""
+    """2-D calls split their rows into chunks; plane-window calls split
+    their plane dim into plane chunks and each plane's rows into row
+    tiles, one block per pair (and independent outer tile), every
+    (plane, row) step owned by exactly one block, each block's walk
+    starting the plane prime and the row prime early."""
     norm = CallLayout(_plan("normalization").calls[0])
     run = norm.concretize((4096, 2048))
     assert run.nblocks >= 132 and run.nchunks == run.nblocks
     assert norm.concretize((4096, 2048), chunk=8).nchunks == 512
     heat = CallLayout(_plan("advect4d_halo").calls[0])
     assert heat.planar and heat.seq_dims == [1] and heat.indep_dims == [0]
-    run = heat.concretize((3, 5, 37, 200), chunk=3)
-    assert run.nchunks == 1 and run.nblocks == 3
+    assert heat.pdim == 1 and heat.walk_dims == []
+    # u[k-1], u[k+1]: two planes behind the streamed one; rows at j only
+    assert (heat.pprime, heat.prime) == (2, 0)
+    run = heat.concretize((3, 5, 37, 200), chunk=3, plane_chunk=2)
+    assert (run.nchunks, run.npchunks, run.nblocks) == (13, 3, 3 * 13 * 3)
+    assert run.smem_bytes > 0 and run.scratch_floats == 0
+    owned = _owners(run, heat)
+    assert len(owned) == run.nchunks * run.npchunks
+    steps = [s for o, _, _ in owned.values() for s in o]
+    assert sorted(steps) == [(o, j) for o in range(run.gsz[1])
+                             for j in range(run.steps_j)]
+    assert owned[1, 4][1:] == (0, 12) and owned[2, 0][1:] == (2, 0)
+    stage = CallLayout(_plan("heat3d_stage").calls[0])
+    # the producer plane window is read a row behind its write plus one
+    # more (rows x - 1 .. x + 1 of a window written at x + 1)
+    assert (stage.pprime, stage.prime) == (2, 2)
     cosmo = CallLayout(_plan("cosmo").calls[0])
     assert cosmo.indep_dims == [0] and cosmo.seq_dims == []
     energy = CallLayout(_plan("energy3d").calls[0])
-    assert energy.seq_dims == [0]
+    assert energy.seq_dims == [0] and energy.walk_dims == [0]
+
+
+@pytest.mark.parametrize("name,sizes", [
+    ("heat3d", (64, 512, 512)), ("heat3d_stage", (64, 512, 512)),
+    ("heat3d_residual_norm", (64, 512, 512)),
+    ("advect4d_halo", (4, 16, 512, 512))])
+def test_plane_window_calls_fill_the_card_from_shared_memory(name, sizes):
+    """At the sizes the smoke run times, the default launch of every
+    plane-window call is at least one wave of 132 blocks, with its plane
+    windows in shared memory."""
+    lay = CallLayout(_plan(name).calls[0])
+    run = lay.concretize(sizes)
+    assert run.nblocks >= 132
+    assert 0 < run.smem_bytes <= 232448 and run.scratch_floats == 0
+    assert run.nchunks > 1
 
 
 # ---------------------------------------------------------------------------
@@ -185,24 +235,34 @@ def emulator(tmp_path_factory):
         pytest.skip("no host C++ compiler (g++) to emulate the kernels")
     build_dir = tmp_path_factory.mktemp("emulated_kernels")
 
-    def build_call(call, sizes, dtype, *, device=None, chunk=None):
+    def build_call(call, sizes, dtype, *, device=None, chunk=None,
+                   plane_chunk=None):
         lay = CallLayout(call)
-        run = lay.concretize(tuple(sizes), chunk)
+        run = lay.concretize(tuple(sizes), chunk, plane_chunk=plane_chunk)
 
         def fn(*args):
             return k1.run_kernel(_emulated(call, build_dir), lay, run,
                                  args, threads=3, stream=None)
         return fn, run.steps_j
 
+    def poisoned(lay, run, device):  # a step no block writes stays NaN
+        outs, scratch = alloc_outputs(lay, run, device)
+        for t in outs + [scratch]:
+            t.fill_(float("nan"))
+        return outs, scratch
+
+    alloc_outputs = k1.alloc_outputs
+    k1.alloc_outputs = poisoned
     register_interpreter(InterpreterSpec(
         "_emulated_cuda", build_call, STENCIL_CAPABILITIES,
-        flags=frozenset({"chunk"})))
+        flags=frozenset({"chunk", "plane_chunk"})))
     yield "_emulated_cuda"
     unregister_interpreter("_emulated_cuda")
+    k1.alloc_outputs = alloc_outputs
 
 
-def _arrays(kplan, rng):
-    sizes = {sym: DIM.get(d, 3) for d, sym in kplan.dim_sizes}
+def _arrays(kplan, rng, dims=DIM):
+    sizes = {sym: dims.get(d, 3) for d, sym in kplan.dim_sizes}
     out = {}
     for ax in kplan.axioms:
         ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
@@ -224,6 +284,37 @@ def test_emulated_kernel_matches_plain_interpreter(name, emulator):
             np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
                                        atol=2e-4, rtol=1e-3,
                                        err_msg=f"{name}/chunk={chunk}:{k}")
+
+
+PLANE_WINDOW_PROGRAMS = ("heat3d", "heat3d_stage", "heat3d_residual_norm",
+                         "advect4d_halo")
+
+
+@pytest.mark.parametrize("plane_chunk", [1, 2, 3])
+@pytest.mark.parametrize("chunk", [1, 3, None])
+@pytest.mark.parametrize("nk", [1, 4])
+@pytest.mark.parametrize("name", PLANE_WINDOW_PROGRAMS)
+def test_emulated_plane_chunks_and_row_tiles(name, nk, chunk, plane_chunk,
+                                             emulator):
+    """Forced plane chunks of 1, 2 and 3 (3 does not divide Nk = 4; at
+    Nk = 1 every chunk is shorter than the plane prime of 2) and row
+    tiles of 1, 3 and the default: every owned step and every
+    accumulator partial is written (the outputs start as NaN) and agrees
+    with the plain interpreter."""
+    dims = dict(DIM, k=nk)
+    ref = compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
+                          device="cpu")
+    arrs = _arrays(ref.kernel_plan, np.random.default_rng(nk), dims)
+    want = ref.fn(**arrs)
+    before = k1.launches
+    got = compile_program(ALL_PROGRAMS[name](), backend=emulator,
+                          device="cpu", chunk=chunk,
+                          plane_chunk=plane_chunk).fn(**arrs)
+    assert k1.launches == before + 1
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=2e-4, rtol=1e-3,
+                                   err_msg=f"{name}/{nk}/{chunk}/{plane_chunk}")
 
 
 # ---------------------------------------------------------------------------

@@ -238,6 +238,38 @@ def test_decode_writes_caches_in_place_as_reference():
     assert not caches["k"][:, :, 3:].any()
 
 
+def test_decode_past_the_cache_drops_the_write_as_reference():
+    """``lengths`` past the cache (caches of 8, ``lengths = [9, 3]``):
+    the reference's scatter drops the out-of-range row, so the port keeps
+    every row of that sequence's caches as it was, writes the other
+    sequence's row 2, and its logits match the reference's."""
+    jcfg, tcfg = _configs()
+    jp, tp = _params(jcfg, tcfg)
+    b, max_seq = 2, 8
+    rng = np.random.default_rng(3)
+    shape = (tcfg.n_layers, b, max_seq, tcfg.n_kv_heads, tcfg.hd)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    token = np.array([5, 17], np.int32)
+    lengths = np.array([9, 3], np.int32)
+    want, want_caches = jengine.make_decode_step(jcfg, interpret=True)(
+        jp, jnp.asarray(token), {"k": jnp.asarray(k0), "v": jnp.asarray(v0)},
+        jnp.asarray(lengths))
+    caches = {"k": torch.from_numpy(k0.copy()),
+              "v": torch.from_numpy(v0.copy())}
+    got = decode_step(tp, torch.from_numpy(token), caches,
+                      torch.from_numpy(lengths), tcfg)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    for name, c0 in (("k", k0), ("v", v0)):
+        np.testing.assert_array_equal(caches[name][:, 0].numpy(), c0[:, 0])
+        np.testing.assert_allclose(_np(caches[name]), _np(want_caches[name]),
+                                   **TOL)
+        assert not np.array_equal(caches[name][:, 1, 2].numpy(), c0[:, 1, 2])
+        np.testing.assert_array_equal(caches[name][:, 1, 3:].numpy(),
+                                      c0[:, 1, 3:])
+
+
 def test_bf16_prefill_and_decode_match_reference():
     jcfg, tcfg = _configs("bfloat16")
     jp, tp = _params(jcfg, tcfg)

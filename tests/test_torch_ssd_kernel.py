@@ -22,6 +22,8 @@ orders, and an error in cs is multiplied by |A| in an exponent); bf16
 from __future__ import annotations
 
 import ctypes
+import importlib.util
+import pathlib
 import shutil
 import subprocess
 
@@ -69,28 +71,40 @@ def _inputs(B, S, H, P, N, *, seed=0, dt_shift=-1.0, device="cpu",
 # The CUDA source compiled as host C++
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernel's library built by ``g++ -DHFAV_EMULATE``."""
+def _build(build_dir, *defines):
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler (g++) to emulate the kernel")
-    so = tmp_path_factory.mktemp("emulated_ssd") / "ssd.so"
+    so = build_dir / "ssd.so"
     res = subprocess.run(
         ["g++", "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC",
-         "-pthread", "-DHFAV_EMULATE", "-o", str(so), str(k4.SOURCE)],
-        capture_output=True, text=True)
+         "-pthread", "-DHFAV_EMULATE", *defines, "-o", str(so),
+         str(k4.SOURCE)], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
     k4._bind(lib)
     return lib
 
 
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel's library built by ``g++ -DHFAV_EMULATE``."""
+    return _build(tmp_path_factory.mktemp("emulated_ssd"))
+
+
 def _emulate(lib, args, chunk):
     x = args[0]
     L = k4.chunk_len(x.shape[1], chunk)
     y = torch.full_like(x, float("nan"))
-    blocks = k4.launch(lib, *args, y, L=L, stream=None)
-    assert blocks == x.shape[0] * x.shape[2]  # one block per (b, h)
+    bufs = k4.scratch(x, args[3].shape[-1], L)
+    for t in bufs:
+        t.fill_(float("nan"))
+    blocks = k4.launch(lib, *args, y, *bufs, L=L, stream=None)
+    B, S, H, P = x.shape
+    nc, n = S // L, -(-L // 64)
+    # one block per (b, chunk, pair of 64-row tiles u <= t), per (b, h,
+    # chunk), per 256 state entries, and per (b, h, chunk, 64-row tile)
+    assert blocks == (B * nc * n * (n + 1) // 2, B * H * nc,
+                      -(-B * H * args[3].shape[-1] * P // 256), B * H * nc * n)
     return y, L
 
 
@@ -102,6 +116,10 @@ EMU_CASES = [
     (1, 200, 2, 20, 100, 256, "float32"),  # L = 200: a partial tile
     (2, 96, 2, 16, 8, 64, "float32"),      # S % 64: the chunk halves to 32
     (1, 48, 2, 16, 8, 256, "float32"),     # one chunk shorter than a tile
+    (2, 256, 1, 64, 128, 256, "bfloat16"),  # one chunk of 4 tiles
+    # 5 chunks; 3 x 2 x 40 x 24 state entries, 22.5 blocks of the state
+    # pass
+    (3, 320, 2, 24, 40, 64, "float32"),
 ]
 
 
@@ -113,6 +131,50 @@ def test_emulated_ssd_matches_plain(case, emulated):
     want = ssd_scan(*args, chunk=L)
     tol = EMU_TOL if dt == "float32" else BF16_TOL
     np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("case", EMU_CASES)
+def test_emulated_ssd_matches_reference_kernel(case, emulated):
+    """The emulated kernel against the JAX package's ``ssd_pallas`` in
+    interpret mode on the same inputs (JAX is imported here, not at the
+    top, so the file's on-card cases run where there is no JAX)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ssd import ssd_pallas
+
+    B, S, H, P, N, chunk, dt = case
+    args = _inputs(B, S, H, P, N, seed=1, dtype=getattr(torch, dt))
+    got, _ = _emulate(emulated, args, chunk)
+    j = [jnp.asarray(_np(a)) for a in args]
+    if dt == "bfloat16":
+        j[0] = j[0].astype(jnp.bfloat16)
+    want = ssd_pallas(*j, chunk=chunk, interpret=True)
+    tol = TOL if dt == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+
+
+def _smoke_gate():
+    """``chip_smoke.py``'s ``gated`` and ``SSD_TOL``."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.gated, mod.SSD_TOL[torch.float32]
+
+
+def test_one_tf32_term_misses_the_float32_gate(tmp_path, emulated):
+    """The same kernel built with one TF32 product per float32 product
+    (``-DSSD_TF32_TERMS=1``) misses ``SSD_TOL`` at mamba2-130m's P, N
+    and chunk; the 3xTF32 split of the kernel meets it."""
+    gated, tol = _smoke_gate()
+    args = _inputs(1, 512, 2, 64, 128, seed=8)
+    want = ssd_scan(*args, chunk=256)
+    one = _build(tmp_path, "-DSSD_TF32_TERMS=1")
+    got1, _ = _emulate(one, args, 256)
+    with pytest.raises(AssertionError, match="past"):
+        gated(got1, want, "one TF32 term", tol)
+    got3, _ = _emulate(emulated, args, 256)
+    gated(got3, want, "3xTF32", tol)
 
 
 def test_emulated_ssd_reads_strided_inputs(emulated):
@@ -165,7 +227,8 @@ def test_emulated_ssd_refuses_shapes_it_does_not_take(emulated):
         args = _inputs(1, 16, 1, P, N)
         y = torch.empty_like(args[0])
         with pytest.raises(RuntimeError, match="shape not taken"):
-            k4.launch(emulated, *args, y, L=16, stream=None)
+            k4.launch(emulated, *args, y, *k4.scratch(args[0], N, 16),
+                      L=16, stream=None)
 
 
 # ---------------------------------------------------------------------------
