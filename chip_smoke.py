@@ -25,7 +25,12 @@ Phases, each of which raises on failure:
    (4096 x 2048), hydro1d (2048 x 4096) and cosmo (64 x 512 x 512),
    held against the port's unfused evaluator and the plain interpreter,
    timed by CUDA events (median of 20 runs after warm-up, L2 flushed
-   between runs) beside the bytes each call must move and their bound;
+   between runs) beside the bytes each call must move and their bound,
+   with each call's launch (blocks, tiles, shared memory), the built
+   kernel's registers and local bytes (``cuobjdump -res-usage``), the
+   blocks an SM holds of it (its occupancy query), the waves of its grid
+   and the barriers of its row step; a second run must give the same
+   bits (the device fold of accumulator partials is ordered);
    then, the same way, the plane-window programs, whose calls run in
    plane chunks times row tiles (heat3d at 6 x 32 x 256 and 64 x 512 x
    512, heat3d_stage and heat3d_residual_norm at 64 x 512 x 512,
@@ -221,6 +226,7 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
     the unfused evaluator and the plain interpreter, time it, and return
     its entry of the ``kernels`` line."""
     from repro_torch.core import ALL_PROGRAMS, build_unfused, compile_program
+    from repro_torch.kernels import build
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
 
@@ -232,6 +238,12 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
     launches = k1.launches
     if launches == 0:
         raise AssertionError(f"main path {n}: no kernel launch")
+    # the same launch again gives the same bits: the device fold of the
+    # accumulators' partial rows runs in a fixed order
+    again = gen.fn(**arrs)
+    for k, v in got.items():
+        if not torch.equal(v, again[k]):
+            raise AssertionError(f"main/{n}:{k}: differs between two runs")
 
     ufn = build_unfused(prog, device=dev).fn
     err_unfused = max_err(got, ufn(**arrs), f"main/{n}/unfused")
@@ -249,14 +261,27 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
     nbytes = sum(bench.call_bytes(lay, run, args)
                  for _, lay, run, args in records)
     bound_ms = nbytes / rate * 1e3
+    # per call ("+" between calls): blocks, plane chunks x row chunks of
+    # planes x rows each, shared memory, registers and local bytes a
+    # thread of the built kernel, blocks an SM holds of it at this launch
+    # (its occupancy query), waves of the grid, barriers a row step
     blocks = "+".join(str(run.nblocks) for _, _, run, _ in records)
-    # per call: plane chunks x row chunks, of planes x rows each
     tiles = "+".join(f"{run.npchunks}x{run.nchunks} of "
                      f"{run.pchunk_len}x{run.chunk_len}"
                      for _, _, run, _ in records)
+    smem = "+".join(str(run.smem_bytes) for _, _, run, _ in records)
+    used = [build.registers(k1.job(lay.call)) for _, lay, _, _ in records]
+    regs = "+".join(str(r) for r, _ in used)
+    spill = "+".join(str(b) for _, b in used)
+    resident = "+".join(str(run.resident) for _, _, run, _ in records)
+    waves = "+".join(str(run.waves) for _, _, run, _ in records)
+    barriers = "+".join(str(lay.barriers_per_row)
+                        for _, lay, _, _ in records)
     shape = tuple(dims.values())
     print(f"main {n:14s} {shape}: launches={launches}  blocks={blocks} "
-          f"({tiles})  smem={records[0][2].smem_bytes}  "
+          f"({tiles})  smem={smem}  regs={regs}  local_bytes={spill}  "
+          f"resident={resident}  waves={waves}  "
+          f"barriers_per_row={barriers}  "
           f"err_vs_unfused={err_unfused:.3e}  "
           f"err_vs_plain={err_plain:.3e}  fn_ms={fn_ms:.4f}  "
           f"kernel_ms={kernel_ms:.4f}  unfused_ms={unfused_ms:.4f}  "
@@ -270,7 +295,8 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None,
         "fn_ms": fn_ms, "unfused_ms": unfused_ms, "blocks": blocks,
-        "tiles": tiles,
+        "tiles": tiles, "regs": regs, "resident": resident, "waves": waves,
+        "barriers_per_row": barriers,
     }
 
 

@@ -15,6 +15,7 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -96,6 +97,16 @@ def resource_usage(job: Job) -> str:
                          capture_output=True, text=True).stdout
     return "\n".join(line.strip() for line in out.splitlines()
                      if "REG:" in line or "Function" in line)
+
+
+def registers(job: Job) -> tuple[int, int]:
+    """(registers a thread, bytes of local memory a thread: spills and
+    stack) of the first kernel in the built library of ``job``, from
+    :func:`resource_usage`."""
+    line = next(ln for ln in resource_usage(job).splitlines()
+                if "REG:" in ln)
+    res = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+    return res["REG"], res.get("STACK", 0) + res.get("LOCAL", 0)
 
 
 def _tmp_so(key: str) -> pathlib.Path:

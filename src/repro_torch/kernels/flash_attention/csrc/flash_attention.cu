@@ -158,9 +158,11 @@ __device__ __forceinline__ Work block_work(const Params& p) {
 inline void cp_async16(void* dst, const void* src, int src_bytes) {
   hfav_cp_async16(dst, src, src_bytes);
 }
-inline void cp_async_commit() {}
+inline void cp_async_commit() { hfav_cp_async_commit(); }
 template <int N>
-inline void cp_async_wait() {}
+inline void cp_async_wait() {
+  hfav_cp_async_wait(N);
+}
 inline void ldmatrix_x4(unsigned r[4], const void* row) {
   hfav_ldmatrix_x4(r, row, false);
 }

@@ -153,12 +153,12 @@ def call_bytes(lay, run, args) -> int:
 
 
 def kernel_ms(record, flush) -> float:
-    """Device time of one recorded call's kernel alone, relaunched with
-    the same inputs at its recorded launch shape (these launches are not
-    counted in ``kernel.launches``)."""
+    """Device time of one recorded call's kernel alone (the fold of its
+    accumulators' partial rows included), relaunched with the same inputs
+    at its recorded launch shape (these launches are not counted in
+    ``kernel.launches``)."""
     lib, lay, run, args = record
-    outs, scratch = k1.alloc_outputs(lay, run, args[0].device)
-    tensors = list(args) + outs + [scratch]
+    _, tensors = k1.launch_tensors(lay, run, args)
     stream = torch.cuda.current_stream(args[0].device).cuda_stream
     return device_ms(lambda: k1.launch(lib, run, tensors, threads=run.threads,
                                        stream=stream), flush)

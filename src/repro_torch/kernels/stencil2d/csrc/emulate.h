@@ -16,13 +16,20 @@
 // slot, meets the warp at its barrier, reads what it needs from the other
 // lanes' slots, and meets it again before any slot is reused; the operands go
 // in and come out in the fragment layouts of the PTX ISA, so a kernel's
-// fragment indexing is tested as written.  cp.async is an immediate
-// 16-byte copy (zero-filled past the source size) whose commit and wait
-// are no-ops: the emulation cannot catch a missing cp.async wait, only
-// the card's conformance runs can.
+// fragment indexing is tested as written.
+//
+// cp.async is deferred, as on the card: a copy (16 bytes, zero-filled
+// past the source size, or 4 bytes) fills its destination with NaNs when
+// it is issued -- the bytes are in flight and undefined -- and is queued
+// in the thread's open group; commit closes the group, and wait_group N
+// performs the thread's oldest groups until at most N are pending.  So a
+// read before the wait that retires its copy, or a copy into a slot that
+// some thread still reads, shows as a NaN in the result.  A block's
+// copies still pending when it ends are dropped.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstring>
 #include <deque>
@@ -34,10 +41,15 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __shared__
 #define __launch_bounds__(...)
+#define __align__(n)
 
 typedef void* cudaStream_t;
+
+using std::max;
+using std::min;
 
 struct hfav_dim {
   unsigned x;
@@ -48,9 +60,36 @@ inline hfav_dim blockDim;
 inline std::barrier<>* hfav_block_barrier = nullptr;
 // the block's dynamic shared memory (the emitted kernels declare it
 // `extern __shared__ float hfav_smem[]`)
-float hfav_smem[232448 / sizeof(float)];
+alignas(16) float hfav_smem[232448 / sizeof(float)];
 
 inline void __syncthreads() { hfav_block_barrier->arrive_and_wait(); }
+
+// __syncthreads_or: a barrier that returns whether any thread of the
+// block passed a non-zero predicate.
+inline std::atomic<int> hfav_block_or{0};
+
+inline int __syncthreads_or(int pred) {
+  if (pred) hfav_block_or.store(1);
+  __syncthreads();
+  const int any = hfav_block_or.load();
+  __syncthreads();
+  if (threadIdx.x == 0) hfav_block_or.store(0);
+  __syncthreads();
+  return any;
+}
+
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+
+template <typename T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 
 template <typename T>
 inline T __ldg(const T* p) {
@@ -237,10 +276,60 @@ inline void hfav_mma_tf32(float d[4], const unsigned a[4], const unsigned b[2],
   }
 }
 
+// ---- cp.async ----------------------------------------------------------
+struct hfav_copy {
+  void* dst;
+  const void* src;
+  int bytes, src_bytes;
+};
+inline thread_local std::vector<hfav_copy> hfav_open_group;
+inline thread_local std::deque<std::vector<hfav_copy>> hfav_groups;
+
+inline void hfav_cp_async(void* dst, const void* src, int bytes,
+                          int src_bytes) {
+  const float nan = __int_as_float(0x7fc00000u);
+  for (int b = 0; b < bytes; b += 4) std::memcpy(static_cast<char*>(dst) + b,
+                                                 &nan, 4);
+  hfav_open_group.push_back({dst, src, bytes, src_bytes});
+}
+
 // cp.async.cg.shared.global, 16 bytes, the rest zero past `src_bytes`
 inline void hfav_cp_async16(void* dst, const void* src, int src_bytes) {
-  std::memset(dst, 0, 16);
-  if (src_bytes > 0) std::memcpy(dst, src, src_bytes < 16 ? src_bytes : 16);
+  hfav_cp_async(dst, src, 16, src_bytes);
+}
+
+// cp.async.ca.shared.global, 4 bytes
+inline void hfav_cp_async4(void* dst, const void* src) {
+  hfav_cp_async(dst, src, 4, 4);
+}
+
+// cp.async.commit_group
+inline void hfav_cp_async_commit() {
+  hfav_groups.push_back(std::move(hfav_open_group));
+  hfav_open_group.clear();
+}
+
+// cp.async.wait_group n: perform the oldest groups until n are pending
+inline void hfav_cp_async_wait(int n) {
+  while (static_cast<int>(hfav_groups.size()) > n) {
+    for (const hfav_copy& c : hfav_groups.front()) {
+      std::memset(c.dst, 0, c.bytes);
+      const int n_src = c.src_bytes < c.bytes ? c.src_bytes : c.bytes;
+      if (n_src > 0) std::memcpy(c.dst, c.src, n_src);
+    }
+    hfav_groups.pop_front();
+  }
+}
+
+// The occupancy model of a build without a card: blocks an SM holds by
+// threads (2048), blocks (32), registers (65536 at 64 a thread, the
+// bound of __launch_bounds__(1024)) and shared memory (233472 bytes,
+// 1024 of them reserved per block).
+inline int emulate_occupancy(int threads, long long smem_bytes) {
+  int n = std::min({2048 / threads, 32, 65536 / (threads * 64)});
+  if (smem_bytes > 0)
+    n = std::min(n, static_cast<int>(233472 / (smem_bytes + 1024)));
+  return n;
 }
 
 template <typename Kernel, typename Params>

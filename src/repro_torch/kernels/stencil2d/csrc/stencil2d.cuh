@@ -8,9 +8,12 @@
 //
 //   * floor-mod slots and clamped row / plane indices (the reference's
 //     _mod and _row_pos: warm-up and drain steps repeat edge rows),
-//   * row streaming into shared or global windows,
+//   * the row ring: input rows copied a few row steps ahead of their use
+//     by cp.async (the emitter fixes how many: emit.RING),
 //   * predicated row seats and output rows,
-//   * the block, chunk and ownership logic of the decomposition.
+//   * the block, chunk and ownership logic of the decomposition,
+//   * the fold of the accumulators' per-block partial rows by the last
+//     block to finish.
 //
 // Decomposition.  A Pallas TPU grid runs in order and carries VMEM state
 // from step to step; CUDA blocks run in parallel.  So a block walks its
@@ -28,8 +31,18 @@
 // plane window recomputes the rows of its halo inside the block
 // (overlapped tiling).  A block writes outputs and combines accumulators
 // only at the steps it owns, and each (plane, row) step has exactly one
-// owner; it leaves one partial accumulator row per block and kept tile,
-// which the host folds in block order.
+// owner; it leaves one partial accumulator row per block and kept tile
+// in the global scratch, and the last block to finish (an atomic ticket,
+// reset by that block for the next launch) folds them in a fixed order.
+//
+// The row step.  A block walks its (walk, plane, row) steps in one
+// sequence.  At step t it waits for its copies of step t's input rows
+// (issued at step t - RING), meets the block at one barrier, issues the
+// copies of step t + RING's rows, and runs the plan's fused
+// steps in phases: one loop over the columns each, a barrier between two
+// phases only where a later one reads what an earlier one wrote at
+// another thread's column (the emitter's hazard analysis).  A local read
+// only at the column of the thread that wrote it lives in a register.
 //
 // Every window of a block -- rolling rows, locals, accumulators and the
 // plane windows of its row tile -- lives in one per-block region: shared
@@ -43,7 +56,9 @@
 // row once, with a handful of flops per element, so it is bound by
 // device-memory bytes.  Windows in shared memory make a row read at
 // several offsets cost one trip to device memory; the chunks' primed
-// steps read again what a neighbouring block reads.
+// steps read again what a neighbouring block reads.  The ring keeps RING
+// row steps of input copies in flight behind the compute, so a row step
+// does not wait a full memory latency.
 #pragma once
 
 #ifdef HFAV_EMULATE
@@ -52,6 +67,7 @@
 #include <cuda_runtime.h>
 #endif
 #include <math.h>
+#include <stdint.h>
 
 namespace hfav {
 
@@ -65,10 +81,20 @@ struct Params {
 };
 
 // Floor-mod slot rotation: robust to the negative positions of pipeline
-// priming, where C's % would give a negative slot.
-__device__ __forceinline__ long long slot(long long pos, long long stages) {
-  const long long r = pos % stages;
+// priming, where C's % would give a negative slot.  32-bit: a block's
+// positions are row steps, and the emitter passes constant moduli where
+// it can.
+__device__ __forceinline__ int slot(int pos, int stages) {
+  const int r = pos % stages;
   return r < 0 ? r + stages : r;
+}
+
+// The slot after `s` of `n`.
+__device__ __forceinline__ int next(int s, int n) { return s + 1 == n ? 0 : s + 1; }
+
+// `v` in [-n, 2n) brought into [0, n).
+__device__ __forceinline__ int wrap(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
 __device__ __forceinline__ long long clamp(long long v, long long lo,
@@ -76,12 +102,88 @@ __device__ __forceinline__ long long clamp(long long v, long long lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Copy one row of n values from device memory into a window row; the
-// threads of the block stride over the columns.
-__device__ __forceinline__ void stream_row(float* __restrict__ dst,
-                                           const float* __restrict__ src,
-                                           int n) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) dst[c] = __ldg(src + c);
+// Floats a window row of n values takes: room for the row to start at
+// its source's address mod 16 bytes.
+__host__ __device__ __forceinline__ long long cap4(long long n) {
+  return (n + 6) / 4 * 4;
+}
+
+// The float offset, mod 4, of a source row: where its window row starts
+// past a 16-byte boundary, so the copy's interior goes in 16-byte pieces.
+__device__ __forceinline__ int shift4(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+#ifdef HFAV_EMULATE
+inline void cp_async16(float* dst, const float* src) {
+  hfav_cp_async16(dst, src, 16);
+}
+inline void cp_async4(float* dst, const float* src) {
+  hfav_cp_async4(dst, src);
+}
+inline void commit() { hfav_cp_async_commit(); }
+inline void wait_ring_n(int n) { hfav_cp_async_wait(n); }
+#else
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from device to shared memory, through L2 only
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+// 4 bytes from device to shared memory
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the same for a depth known at run time (at most 7)
+__device__ __forceinline__ void wait_ring_n(int n) {
+  switch (n) {
+    case 0: wait_ring<0>(); break;
+    case 1: wait_ring<1>(); break;
+    case 2: wait_ring<2>(); break;
+    case 3: wait_ring<3>(); break;
+    case 4: wait_ring<4>(); break;
+    case 5: wait_ring<5>(); break;
+    case 6: wait_ring<6>(); break;
+    default: wait_ring<7>(); break;
+  }
+}
+#endif
+
+// Issue the copy of one row of n values from device memory into a window
+// row that starts at the same address mod 16 bytes: 16-byte cp.async for
+// the aligned interior, 4-byte for a ragged head and tail, the threads of
+// the block striding over the pieces.  A window in the global scratch
+// (no shared memory) is copied at once with plain loads and stores.
+__device__ __forceinline__ void issue_row(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int n, long long use_smem) {
+  if (!use_smem) {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) dst[c] = __ldg(src + c);
+    return;
+  }
+  const int head = min(n, (4 - shift4(src)) & 3);
+  const int body = (n - head) >> 2, tail = (n - head) & 3;
+  for (int k = threadIdx.x; k < body; k += blockDim.x)
+    cp_async16(dst + head + 4 * k, src + head + 4 * k);
+  for (int k = threadIdx.x; k < head + tail; k += blockDim.x) {
+    const int c = k < head ? k : head + 4 * body + (k - head);
+    cp_async4(dst + c, src + c);
+  }
 }
 
 // Fill the columns of an n-wide row outside [lo, hi) with v (the
@@ -114,6 +216,96 @@ __device__ __forceinline__ Chunk chunk_of(long long chunk, long long len,
   c.end = c.own + len < steps ? c.own + len : steps;
   c.first = c.own - prime > 0 ? c.own - prime : 0;
   return c;
+}
+
+// A position in a block's walk: step t of the sequence, the walk index
+// (over the outer dims the block walks whole), the plane and the row
+// within the block's plane chunk and row chunk.
+struct Cursor {
+  int t, sq, pi, ji;
+
+  __device__ __forceinline__ void advance(int nrows, int nplanes) {
+    ++t;
+    if (++ji == nrows) {
+      ji = 0;
+      if (++pi == nplanes) {
+        pi = 0;
+        ++sq;
+      }
+    }
+  }
+};
+
+// The value at position `pos` after `levels` (at most L) halvings of the
+// `n` rows at `src` (`ld` floats apart, `src` at the column), halving as
+// lane_reduce does: pairs (i, i + half) with half = ceil(m / 2) of a
+// level's length m, a missing partner the identity.  Its 2^levels loads
+// do not depend on each other.
+template <int L, typename Fn>
+__device__ __forceinline__ float fold_tree(const float* __restrict__ src,
+                                           long long ld, int n, int levels,
+                                           int pos, float ident, Fn fn) {
+  if constexpr (L == 0) {
+    return __ldcg(src + pos * ld);
+  } else {
+    if (levels == 0) return __ldcg(src + pos * ld);
+    int m = n;  // the length of the level below the top
+    for (int l = 1; l < levels; ++l) m = (m + 1) / 2;
+    const int half = (m + 1) / 2;
+    const float a = fold_tree<L - 1>(src, ld, n, levels - 1, pos, ident, fn);
+    return fn(a, pos + half < m ? fold_tree<L - 1>(src, ld, n, levels - 1,
+                                                   pos + half, ident, fn)
+                                : ident);
+  }
+}
+
+// Fold `n` rows of `w` floats (row i at src + i * ld) into the row `out`
+// in lane_reduce's order, four levels a pass: each (position, column)
+// item of a pass is a thread's, combining up to 16 rows; the passes
+// between write `tmp` (ceil(n / 16) + ceil(n / 256) rows, in turn; none
+// for n <= 16).  Run by one whole block (no inlining: its registers stay
+// out of the row step's).
+template <typename Fn>
+__device__ __noinline__ void fold_rows(const float* src, long long ld, int n,
+                                       float* tmp, float* out, int w,
+                                       float ident, Fn fn) {
+  float* const bufs[2] = {tmp, tmp + ((n + 15) / 16) * w};
+  int b = 0;
+  while (true) {
+    int levels = 0, m = n;
+    while (m > 1 && levels < 4) {
+      m = (m + 1) / 2;
+      ++levels;
+    }
+    float* const dst = m == 1 ? out : bufs[b];
+    for (int it = threadIdx.x; it < m * w; it += blockDim.x) {
+      const int c = it % w, pos = it / w;
+      dst[static_cast<long long>(pos) * w + c] =
+          fold_tree<4>(src + c, ld, n, levels, pos, ident, fn);
+    }
+    __syncthreads();
+    if (m == 1) return;
+    src = bufs[b];
+    ld = w;
+    n = m;
+    b ^= 1;
+  }
+}
+
+// Whether this block is the last of `nblocks` to get here: every thread
+// fences its writes, the block meets, one thread takes a ticket; the last
+// block resets the ticket for the next launch.
+__device__ __forceinline__ bool last_block(unsigned* ticket,
+                                           long long nblocks) {
+  __threadfence();
+  __syncthreads();
+  bool last = false;
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned>(nblocks - 1);
+  if (!__syncthreads_or(last)) return false;
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0;
+  return true;
 }
 
 // The region of per-block scratch: shared memory when the block's
@@ -150,6 +342,29 @@ int launch(Kernel kernel, void** ptrs, const long long* ints,
 #endif
 }
 
+// Blocks of `threads` threads and `smem_bytes` of dynamic shared memory
+// that one SM holds of the built kernel
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the emulation answers
+// from its model), or minus the error code.
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, long long smem_bytes) {
+#ifdef HFAV_EMULATE
+  (void)kernel;
+  return emulate_occupancy(threads, smem_bytes);
+#else
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes));
+    if (e != cudaSuccess) return -static_cast<int>(e);
+  }
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernel, threads, static_cast<size_t>(smem_bytes));
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+#endif
+}
+
 }  // namespace hfav
 
 // The entry points every emitted source defines through this macro.
@@ -159,6 +374,9 @@ int launch(Kernel kernel, void** ptrs, const long long* ints,
                              long long smem_bytes, void* stream) {        \
     return hfav::launch<NP, ND>(KERNEL, ptrs, ints, nblocks, threads,     \
                                 smem_bytes, stream);                      \
+  }                                                                       \
+  extern "C" int hfav_occupancy(int threads, long long smem_bytes) {       \
+    return hfav::occupancy(KERNEL, threads, smem_bytes);                  \
   }                                                                       \
   extern "C" const char* hfav_error_string(int e) {                       \
     return cudaGetErrorString(static_cast<cudaError_t>(e));               \

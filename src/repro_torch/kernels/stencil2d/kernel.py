@@ -13,9 +13,10 @@ loads it with ``ctypes``, and launches it on PyTorch's current stream.
 ``build_call`` — row outputs ``(*grid, steps_j, Ni)``, carried
 accumulators ``(1, w)``, kept-prefix accumulators ``(*grid[:n_kept], w)``
 — so the shared host half assembles its outputs unchanged.  The kernel
-leaves one partial accumulator row per block (and kept tile); the host
-folds them in block order with the plan's own combine body, as the host
-half folds lanes.
+leaves one partial accumulator row per block (and kept tile) in its
+global scratch, and the last block to finish folds them with the plan's
+own combine body in ``lane_reduce``'s order (atomic tickets, kept per
+call and device in :data:`_TICKETS` and reset by the kernel).
 
 What bounds it on the H100: every call streams each input row from
 device memory once and writes each output row once, with a few flops
@@ -24,7 +25,11 @@ windows (rolling rows, and the plane windows of its row tile) live in
 shared memory when they fit, so a row read at several offsets costs one
 trip to device memory and a contracted plane never goes there; row
 chunks, and in a call with plane windows plane chunks times row tiles,
-give every program enough blocks to fill the card.
+give every program enough blocks to fill the card: the chooser
+(:meth:`CallLayout.concretize`) reads how many blocks an SM holds of the
+built kernel (``hfav_occupancy``), so the launch is fixed at the first
+call, after the build.  Each block keeps its input rows a few row steps
+ahead in a ``cp.async`` ring.
 
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
@@ -43,9 +48,8 @@ from ...core.interpreters import (STENCIL_CAPABILITIES, InterpreterSpec,
                                   PlanUnsupported, register_interpreter,
                                   require_hazard_free, require_linked_fns)
 from ...core.plan import CallPlan, fn_key
-from ...core.runtime import lane_reduce
 from .. import build
-from .emit import H100_SMS, CallLayout, emit_source
+from .emit import CallLayout, emit_source
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "stencil2d.cuh"
@@ -55,6 +59,10 @@ launches = 0
 
 _CALLS: dict = {}
 _LOCK = threading.Lock()
+#: The fold's tickets of each (call, device): int32, zero between
+#: launches (the kernel's last blocks reset them).  A call's launches on
+#: one device share them, so they must not overlap (one stream).
+_TICKETS: dict = {}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -62,6 +70,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                 ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_longlong, ctypes.c_void_p]
     lib.hfav_launch.restype = ctypes.c_int
+    lib.hfav_occupancy.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.hfav_occupancy.restype = ctypes.c_int
     lib.hfav_error_string.argtypes = [ctypes.c_int]
     lib.hfav_error_string.restype = ctypes.c_char_p
 
@@ -109,28 +119,66 @@ def _check_tensor(t, what: str, shape, device) -> None:
         raise ValueError(f"{what}: not contiguous")
 
 
+def occupancy(lib):
+    """Blocks of the built kernel ``lib`` an SM holds, as a function of a
+    block's threads and shared-memory bytes (memoized); raises when the
+    query fails."""
+    memo = {}
+
+    def resident(threads: int, smem_bytes: int) -> int:
+        key = (threads, smem_bytes)
+        if key not in memo:
+            n = lib.hfav_occupancy(threads, smem_bytes)
+            if n < 0:
+                raise RuntimeError(
+                    f"stencil kernel occupancy query failed: "
+                    f"{lib.hfav_error_string(-n).decode()} ({-n})")
+            memo[key] = n
+        return memo[key]
+    return resident
+
+
 def alloc_outputs(lay: CallLayout, run, device):
-    """The kernel's padded outputs (accumulators as per-block partial
-    rows: one per row chunk, and per plane chunk where the accumulator
-    sums over the plane dim) and its global scratch, on ``device``."""
+    """The kernel's padded outputs under the reference contract (row
+    outputs ``(*grid, steps_j, Ni)``, accumulators ``(1, w)`` or
+    ``(*grid[:n_kept], w)``) and its global scratch (the blocks' regions
+    where they do not fit shared memory, the accumulators' partial rows),
+    on ``device``."""
     outs = []
-    for o in lay.call.outputs:
+    for k, o in enumerate(lay.call.outputs):
         if o.acc is None:
             shape = (*run.gsz, run.steps_j, run.ni)
         else:
-            a = next(a for a in lay.call.accs if a.name == o.acc)
-            parts = run.nchunks * (run.npchunks if lay.plane_reduced(a)
-                                   else 1)
-            shape = (*run.gsz[:a.n_kept], parts, run.ni + a.w_off)
+            a = lay.acc_of(k)
+            shape = (*run.gsz[:a.n_kept], run.ni + a.w_off) if a.n_kept \
+                else (1, run.ni + a.w_off)
         outs.append(torch.empty(shape, dtype=torch.float32, device=device))
     scratch = torch.empty(max(run.scratch_floats, 1), dtype=torch.float32,
                           device=device)
     return outs, scratch
 
 
+def tickets(lay: CallLayout, device, n: int) -> torch.Tensor:
+    """At least ``n`` fold tickets of ``lay``'s call on ``device``
+    (zeroed when made; the kernel leaves them zero)."""
+    key = (lay, str(device))
+    if key not in _TICKETS or _TICKETS[key].numel() < n:
+        _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def launch_tensors(lay: CallLayout, run, args):
+    """``(outputs, every tensor of a launch in kernel order)``: the
+    inputs, freshly allocated outputs and scratch, and the tickets."""
+    dev = args[0].device
+    outs, scratch = alloc_outputs(lay, run, dev)
+    return outs, list(args) + outs + [scratch,
+                                      tickets(lay, dev, run.tickets)]
+
+
 def launch(lib, run, tensors, *, threads: int, stream) -> None:
     """One launch of ``lib``'s kernel over ``tensors`` (inputs, outputs,
-    scratch); raises when the launch is refused."""
+    scratch, tickets); raises when the launch is refused."""
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     ints = (ctypes.c_longlong * len(run.ints))(*run.ints)
     rc = lib.hfav_launch(ptrs, ints, run.nblocks, threads, run.smem_bytes,
@@ -141,24 +189,18 @@ def launch(lib, run, tensors, *, threads: int, stream) -> None:
 
 
 def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
-    """Allocate ``run``'s outputs and scratch beside ``args``, launch the
-    kernel of ``lib`` on ``stream`` and fold each accumulator's per-block
-    partial rows in a fixed order with the plan's combine body; returns
-    the padded outputs under the reference contract."""
+    """Allocate ``run``'s outputs and scratch beside ``args`` and launch
+    the kernel of ``lib`` on ``stream`` (which folds the accumulators);
+    returns the padded outputs under the reference contract.  A launch
+    of no blocks leaves each accumulator at its identity."""
     global launches
-    call = lay.call
-    outs, scratch = alloc_outputs(lay, run, args[0].device)
+    outs, tensors = launch_tensors(lay, run, args)
     if run.nblocks:
-        launch(lib, run, list(args) + outs + [scratch], threads=threads,
-               stream=stream)
+        launch(lib, run, tensors, threads=threads, stream=stream)
         launches += 1
-    for k, o in enumerate(call.outputs):
-        if o.acc is None:
-            continue
-        a = next(a for a in call.accs if a.name == o.acc)
-        part = torch.movedim(outs[k], -2, 0)
-        folded = lane_reduce(call.fns[lay.acc_fold[o.acc]], part, a.init)
-        outs[k] = folded if a.n_kept else folded.reshape(1, -1)
+    else:
+        for k in lay.acc_outs:
+            outs[k].fill_(lay.acc_of(k).init)
     return outs if len(outs) > 1 else outs[0]
 
 
@@ -172,9 +214,9 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     under the reference contract.  ``chunk`` is the row-chunk length
     (the row tile of a call with plane windows) and ``plane_chunk`` the
     plane-chunk length of a call with plane windows; by default
-    :meth:`CallLayout.concretize` sizes both for at least one full wave
-    of resident blocks on ``device``.  The kernel is built at the first
-    call."""
+    :meth:`CallLayout.concretize` sizes both for the fewest row steps in
+    waves of the blocks an SM holds of the built kernel.  The kernel is
+    built, and its launch fixed, at the first call."""
     if dtype != torch.float32:
         raise PlanUnsupported(
             f"the CUDA stencil kernel builds for float32 only, not {dtype}")
@@ -185,11 +227,8 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     require_linked_fns(call)
     require_hazard_free(call)
     lay = layout(call)
-    dev = torch.device(device) if device is not None else None
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
-        if dev is not None and dev.type == "cuda" else H100_SMS
-    run = lay.concretize(tuple(sizes), chunk, sms, plane_chunk)
     *outer_sizes, nj, ni = sizes
+    steps_j = max(0, nj + call.x_hi_off - call.x_lo)
     in_shapes = []
     for i in call.inputs:
         if i.scalar:
@@ -202,7 +241,7 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
             for li, d in enumerate(range(n_out - i.n_outer, n_out)))
             + (nj + i.j_hi - i.j_lo, ni + i.i_hi - i.i_lo))
 
-    lib = []  # the kernel's library, built at the first call
+    built = []  # (library, launch), fixed at the first call
 
     def fn(*args):
         if len(args) != len(call.inputs):
@@ -211,13 +250,18 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
         dev = args[0].device if isinstance(args[0], torch.Tensor) else None
         for i, t, shape in zip(call.inputs, args, in_shapes):
             _check_tensor(t, f"input {i.name!r}", shape, dev)
-        if not lib:
-            lib.append(build_library(call))
         with torch.cuda.device(dev):
-            return run_kernel(lib[0], lay, run, args, threads=run.threads,
+            if not built:
+                lib = build_library(call)
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                built.append((lib, lay.concretize(
+                    tuple(sizes), occupancy(lib), chunk, sms, plane_chunk)))
+            lib, run = built[0]
+            return run_kernel(lib, lay, run, args, threads=run.threads,
                               stream=torch.cuda.current_stream(dev).cuda_stream)
 
-    return fn, run.steps_j
+    return fn, steps_j
 
 
 register_interpreter(InterpreterSpec(

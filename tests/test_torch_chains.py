@@ -22,7 +22,10 @@ minimal failing descriptor:
   installed jax, ROADMAP);
 * the stencil kernel K1 compiled as host C++ (``-DHFAV_EMULATE``, the
   fixture of ``tests/test_torch_emit.py``) with small forced row chunks
-  and plane chunks, against ``interp_torch``.
+  and plane chunks, against ``interp_torch``;
+
+and the barriers of each chain's emitted row step against the hazard
+analysis of ``tests/test_torch_emit.py`` (``check_barriers``).
 
 Tolerance: the repository's conformance tolerance, ``atol=2e-4,
 rtol=1e-3`` (``tests/test_interp_conformance.py``).
@@ -43,6 +46,7 @@ from repro.core.plan import register_step_builder as ref_register
 from repro.core.plan import unregister_step_builder as ref_unregister
 from repro_torch.core.plan import (register_step_builder,
                                    unregister_step_builder)
+from test_torch_emit import check_barriers
 from test_torch_emit import emulator  # noqa: F401 (the emulated K1)
 
 TOL = dict(atol=2e-4, rtol=1e-3)
@@ -197,6 +201,15 @@ def test_chain_interp_torch_matches_interp_jax_and_unfused(seed, shape):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_chain_emulated_kernel_matches_interp_torch(seed, shape, emulator):
     _check(_kernel_leg, random_chain(seed), shape, emulator)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_chain_row_step_barriers_cover_every_hazard(seed, shape):
+    gen, _ = _compiled(tc, random_chain(seed), shape, "interp_torch")
+    for call in gen.kernel_plan.calls if gen is not None else ():
+        if call.has_grid:
+            check_barriers(call)
 
 
 def test_some_3d_chains_have_plane_windows_and_row_halos():
