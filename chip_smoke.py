@@ -35,6 +35,26 @@ Phases, each of which raises on failure:
    plane chunks times row tiles (heat3d at 6 x 32 x 256 and 64 x 512 x
    512, heat3d_stage and heat3d_residual_norm at 64 x 512 x 512,
    advect4d_halo at 4 x 16 x 512 x 512);
+4b. the compiler's entry points and PlanServe, each through K1: the
+   backend ``"auto"`` picks for each of the 15 programs, without and
+   with ``dim_sizes`` at main-path size (every program, split ones
+   included, must take ``"cuda"`` and launch K1), with K1's per-block
+   bytes at that size; the fused-source emitter (``backend="torch"``)
+   on all 15 programs against ``interp_torch`` on the card, then
+   normalization and smooth_norm at 4096 x 2048 timed on the emitter
+   and on K1 (median of 5), and K1 against the emitter where the
+   reference's size consult would route away (a block's region over
+   shared memory, rows under the lane-occupancy floor); LayoutApply (``apply_layout="auto"``/``"force"``) on
+   ``interp_torch`` for cosmo, hydro1d, laplace5 and row_sum, the
+   bit-exact rewrites held bit for bit; the on-disk plan cache (a warm
+   compile runs no ``infer``, same bits, cold and warm compile times);
+   ``compile_batched`` on K1 at B = 4 for hydro1d and cosmo, bit for bit
+   against four single calls, timed both ways; PlanServe on K1 with 48
+   requests of mixed sizes over laplace5, hydro1d, normalization and
+   cosmo, every answer bit for bit against a per-example K1 call at its
+   true size, with its metrics; then two spawned workers over one
+   plan-cache directory, cold and then warm, their answers checked the
+   same way;
 5. attention conformance: flash attention (K2) and flash decode (K3)
    against their plain versions on the card, float32 and bf16, causal
    or not, with and without a window, GQA groups 1, 2 and 4, head dims
@@ -67,9 +87,10 @@ Phases, each of which raises on failure:
    (``"chunked"``), float32 gated and bf16 printed; greedy decode as for
    qwen3-0.6b; then timed, profiled, and K4 (and zamba2's K2 and K3)
    alone at the path's shapes;
-9. the ``kernels`` line: for each kernel and main path, its launches in
-   one driven run (counts set to zero just before it), its error
-   against the plain version, its times and its bound.
+9. the ``kernels`` line: for each kernel and main path (K1's
+   ``compile_batched`` and PlanServe paths of phase 4b among them), its
+   launches in one driven run (counts set to zero just before it), its
+   error against the plain version, its times and its bound.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is the
 device's alone: the host enqueues the call while the device spins
@@ -164,6 +185,32 @@ EARLIER_MS = {("K2", "qwen3-0.6b"): 3.3810, ("K2", "zamba2-2.7b"): 4.6541,
 LM_ARCH = "qwen3-0.6b"
 PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_PROMPT, DECODE_STEPS, MAX_SEQ = 4, 16, 16, 4096
+#: Phase 4b.  The split programs timed on the fused-source emitter
+#: against K1, with their sizes (normalization's main-path size).
+EMITTER_PATH = (("normalization", {"j": 4096, "i": 2048}),
+                ("smooth_norm", {"j": 4096, "i": 2048}))
+EMITTER_RUNS = 5
+#: Sizes at which the reference's ``dim_sizes`` consult would route away
+#: from the stencil kernel, timed on K1 and on the emitter: a block's
+#: region over shared memory (K1 keeps it in global scratch), and rows
+#: under the lane-occupancy floor.
+CONSULT_PATH = (("laplace5", {"j": 256, "i": 16384}),
+                ("hydro1d", {"j": 256, "i": 16384}),
+                ("laplace5", {"j": 4096, "i": 24}))
+#: Programs run through LayoutApply on the plain interpreter.
+LAYOUT_PROGRAMS = ("cosmo", "hydro1d", "laplace5", "row_sum")
+#: compile_batched's batch and programs (main-path sizes).
+BATCH = 4
+BATCHED_PATH = (("hydro1d", {"j": 2048, "i": 4096}),
+                ("cosmo", {"k": 64, "j": 512, "i": 512}))
+#: PlanServe's request stream: 48 requests in turn over the programs,
+#: 2-D sizes drawn from SERVE_2D per dimension, cosmo SERVE_PLANES planes
+#: of SERVE_COSMO x SERVE_COSMO, from a seeded generator.
+SERVE_PROGRAMS = ("laplace5", "hydro1d", "normalization", "cosmo")
+SERVE_REQUESTS, SERVE_MAX_BATCH = 48, 8
+SERVE_2D, SERVE_COSMO, SERVE_PLANES = (1000, 2048), (480, 512), 16
+#: Requests each pool of spawned workers answers.
+WORKER_REQUESTS = 4
 
 
 def close(got, want, tag: str, atol: float, rtol: float) -> float:
@@ -231,7 +278,7 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
     from repro_torch.kernels.stencil2d import kernel as k1
 
     prog = ALL_PROGRAMS[n]()
-    gen = compile_program(prog)
+    gen = compile_program(prog, backend="cuda")
     arrs = bench.make_inputs(n, gen.kernel_plan, dims, 11, dev)
     k1.launches = 0
     got, records = bench.capture(lambda: gen.fn(**arrs))
@@ -298,6 +345,416 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
         "tiles": tiles, "regs": regs, "resident": resident, "waves": waves,
         "barriers_per_row": barriers,
     }
+
+
+def main_dims(n: str, kplan) -> dict:
+    """Loop-dim sizes of program ``n`` at main-path size: its own from
+    the stencil main paths (the largest), else by its rank normalization's,
+    cosmo's or advect4d_halo's."""
+    from repro_torch.kernels.stencil2d import bench
+
+    own = dict(bench.MAIN_PATH + bench.PLANE_WINDOW_PATH)
+    if n in own:
+        return own[n]
+    by_rank = {2: {"j": 4096, "i": 2048}, 3: {"k": 64, "j": 512, "i": 512},
+               4: {"l": 4, "k": 16, "j": 512, "i": 512}}
+    return by_rank[len(kplan.loop_order)]
+
+
+def timed_against_plain(n: str, run, plain, arrays: list, flush,
+                        rate: float, tag: str, trim=lambda out: out) -> dict:
+    """Call ``run`` (through K1) on each input of ``arrays`` recording its
+    K1 calls, and the plain version ``plain`` on the same inputs, held
+    against each other after ``trim`` (PlanServe's unpad to the request);
+    returns the max error, the K1 calls' device time, the plain version's
+    host-clocked time and the calls' byte bound."""
+    from repro_torch.kernels.stencil2d import bench
+
+    err = plain_ms = 0.0
+    records = []
+    for arrs in arrays:
+        got, recs = bench.capture(lambda: run(arrs))
+        records += recs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(arrs)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        err = max(err, max_err(trim(got), trim(want),
+                               f"{tag}/{n}/interp_torch"))
+    ms = sum(bench.kernel_ms(r, flush) for r in records)
+    nbytes = sum(bench.call_bytes(lay, run, args)
+                 for _, lay, run, args in records)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / rate * 1e3}
+
+
+def serve_requests(dev) -> list:
+    """PlanServe's seeded request stream: ``(program, {array: tensor})``,
+    the programs in turn."""
+    from repro_torch.core import ALL_PROGRAMS
+    from repro_torch.kernels.stencil2d import bench
+
+    gen = torch.Generator().manual_seed(5)
+
+    def draw(lo_hi):
+        return int(torch.randint(lo_hi[0], lo_hi[1] + 1, (1,),
+                                 generator=gen))
+
+    reqs = []
+    for r in range(SERVE_REQUESTS):
+        n = SERVE_PROGRAMS[r % len(SERVE_PROGRAMS)]
+        kplan = compile_program_plain(ALL_PROGRAMS[n]())
+        if n == "cosmo":
+            dims = {"k": SERVE_PLANES, "j": draw(SERVE_COSMO),
+                    "i": draw(SERVE_COSMO)}
+        else:
+            dims = {"j": draw(SERVE_2D), "i": draw(SERVE_2D)}
+        reqs.append((n, bench.make_inputs(n, kplan, dims, 100 + r, dev)))
+    return reqs
+
+
+def compile_program_plain(prog):
+    """``prog``'s kernel plan (the plain interpreter's compile on the CPU:
+    nothing runs)."""
+    from repro_torch.core import compile_program
+
+    return compile_program(prog, backend="interp_torch",
+                           device="cpu").kernel_plan
+
+
+def compiler_phase(dev, flush, rate: float, smi: str) -> list:
+    """Phase 4b: the compiler's entry points and PlanServe on the card —
+    ``"auto"``'s routes, the fused-source emitter, LayoutApply on the
+    plain interpreter, the on-disk plan cache, ``compile_batched`` and
+    PlanServe (in process and in spawned workers), each through K1.
+    Returns the K1 entries of the ``kernels`` line for the
+    ``compile_batched`` and PlanServe paths."""
+    import shutil
+    import tempfile
+
+    import repro_torch.core.engine as engine
+    from repro_torch.core import (ALL_PROGRAMS, Generated, apply_layout,
+                                  clear_compile_cache, compile_batched,
+                                  compile_program)
+    from repro_torch.core.engine import smem_report
+    from repro_torch.core.vecscan import auto_vec_reject
+    from repro_torch.kernels import build
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.kernels.stencil2d import kernel as k1
+    from repro_torch.kernels.stencil2d.emit import SMEM_LIMIT
+    from repro_torch.serve.plans import (PlanServe, bucket_sizes,
+                                         pad_to_bucket, request_sizes,
+                                         unpad_outputs)
+    from repro_torch.serve.workers import WorkerPool
+
+    t_phase = time.perf_counter()
+    entries = []
+    plans = {n: compile_program_plain(b())
+             for n, b in sorted(ALL_PROGRAMS.items())}
+
+    # 1. "auto"'s routes on the card, without and with dim_sizes at
+    # main-path size: every program takes K1 and launches it
+    for n, b in sorted(ALL_PROGRAMS.items()):
+        dims = main_dims(n, plans[n])
+        sizes = {sym: dims[d] for d, sym in plans[n].dim_sizes}
+        routes = []
+        for gen in (compile_program(b()), compile_program(b(),
+                                                          dim_sizes=sizes)):
+            route = "torch" if isinstance(gen, Generated) else gen.interpreter
+            if route != "cuda":
+                raise AssertionError(f"auto/{n}: took {route!r}, not 'cuda'")
+            routes.append(route)
+        arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev)
+        k1.launches = 0
+        gen.fn(**arrs)
+        torch.cuda.synchronize()
+        if k1.launches == 0:
+            raise AssertionError(f"auto/{n}: no K1 launch")
+        smem = "+".join(str(v) for v in smem_report(plans[n],
+                                                    sizes).values())
+        nests = len(engine._build_plan(b())[1].schedule.nests)
+        print(f"auto {n:22s} nests={nests} route={routes[0]}  with "
+              f"dim_sizes {sizes}: route={routes[1]}  K1 launches="
+              f"{k1.launches}  K1 region a block={smem} B (shared memory "
+              f"holds {SMEM_LIMIT})", flush=True)
+
+    # 2. the fused-source emitter: all 15 programs against interp_torch
+    # on the card, then the split programs timed against K1
+    for n, b in sorted(ALL_PROGRAMS.items()):
+        arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev)
+        got = compile_program(b(), backend="torch").fn(**arrs)
+        want = compile_program(b(), backend="interp_torch",
+                               device=dev).fn(**arrs)
+        print(f"emitter {n:22s} max_abs_err vs interp_torch: "
+              f"{max_err(got, want, f'emitter/{n}'):.3e}", flush=True)
+    for n, dims in EMITTER_PATH:
+        prog = ALL_PROGRAMS[n]()
+        arrs = bench.make_inputs(n, plans[n], dims, 11, dev)
+        emitted = compile_program(prog, backend="torch")
+        kernel = compile_program(prog, backend="cuda")
+        err = max_err(emitted.fn(**arrs), kernel.fn(**arrs),
+                      f"emitter/{n}/cuda")
+        em_ms = bench.event_ms(lambda: emitted.fn(**arrs), flush,
+                               runs=EMITTER_RUNS)
+        k1_ms = bench.event_ms(lambda: kernel.fn(**arrs), flush,
+                               runs=EMITTER_RUNS)
+        print(f"emitter {n} {tuple(dims.values())}: torch_fn_ms={em_ms:.3f}"
+              f"  cuda_fn_ms={k1_ms:.4f}  ratio={em_ms / k1_ms:.0f}x  "
+              f"max_abs_err vs cuda={err:.3e}  card: {smi}", flush=True)
+    # where the reference's consult would route away: K1 (from global
+    # scratch where the region outgrows shared memory) against the
+    # emitter, held against each other
+    for n, dims in CONSULT_PATH:
+        prog = ALL_PROGRAMS[n]()
+        sizes = {sym: dims[d] for d, sym in plans[n].dim_sizes}
+        why = [f"region {v} B" for v in smem_report(plans[n],
+                                                    sizes).values()
+               if v > SMEM_LIMIT]
+        vec = auto_vec_reject(plans[n], sizes)
+        if vec:
+            why.append(vec)
+        if not why:
+            raise AssertionError(f"consult/{n}: {sizes} is not a size the "
+                                 f"consult would route away")
+        arrs = bench.make_inputs(n, plans[n], dims, 11, dev)
+        emitted = compile_program(prog, backend="torch")
+        kernel = compile_program(prog)
+        if kernel.interpreter != "cuda":
+            raise AssertionError(f"consult/{n}: auto took "
+                                 f"{kernel.interpreter!r}")
+        got, records = bench.capture(lambda: kernel.fn(**arrs))
+        err = max_err(emitted.fn(**arrs), got, f"consult/{n}/cuda")
+        scratch = "+".join("global scratch" if run.smem_bytes == 0
+                           else f"shared {run.smem_bytes} B"
+                           for _, _, run, _ in records)
+        em_ms = bench.event_ms(lambda: emitted.fn(**arrs), flush,
+                               runs=EMITTER_RUNS)
+        k1_ms = bench.event_ms(lambda: kernel.fn(**arrs), flush,
+                               runs=EMITTER_RUNS)
+        print(f"consult {n} {tuple(dims.values())} ({'; '.join(why)}): "
+              f"K1 in {scratch}  cuda_fn_ms={k1_ms:.4f}  "
+              f"torch_fn_ms={em_ms:.3f}  ratio={em_ms / k1_ms:.0f}x  "
+              f"max_abs_err vs torch={err:.3e}  card: {smi}", flush=True)
+
+    # 3. LayoutApply on the plain interpreter, on the card
+    for n in LAYOUT_PROGRAMS:
+        arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev)
+        base = compile_program(ALL_PROGRAMS[n](), backend="interp_torch",
+                               device=dev).fn(**arrs)
+        for mode in ("auto", "force"):
+            gen = compile_program(ALL_PROGRAMS[n](), backend="interp_torch",
+                                  device=dev, apply_layout=mode)
+            got = gen.fn(**arrs)
+            # what the pass did (an executor whose plan the pass left
+            # unchanged is shared with the untransformed compile's)
+            res = apply_layout(plans[n], mode=mode)
+            exact = all(k in ("shift_reuse", "realign_origin")
+                        for k, _, _ in res.applied)
+            if exact:
+                for k in base:
+                    if not torch.equal(got[k], base[k]):
+                        raise AssertionError(f"layout/{n}/{mode}:{k}: a "
+                                             f"bit-exact rewrite changed bits")
+            err = max_err(got, base, f"layout/{n}/{mode}")
+            print(f"layout {n:10s} {mode:5s} applied="
+                  f"{[f'{k}:{t}' for k, _, t in res.applied]} skipped="
+                  f"{[f'{k}:{t} ({why})' for k, _, t, why in res.skipped]} "
+                  f"{'bit-identical' if exact else 'within tolerance'} "
+                  f"(max_abs_err {err:.3e})", flush=True)
+
+    # 4. the on-disk plan cache: cold compile, in-memory caches cleared,
+    # warm compile with the analysis pipeline counted
+    cache_dir = tempfile.mkdtemp(prefix="plancache-", dir=build.BUILD_DIR)
+    try:
+        for n, dims in bench.MAIN_PATH:
+            clear_compile_cache()
+            t0 = time.perf_counter()
+            cold = compile_program(ALL_PROGRAMS[n](), backend="cuda",
+                                   plan_cache_dir=cache_dir)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            clear_compile_cache()
+            ran = []
+            real_infer = engine.infer
+
+            def counted(*a, **k):
+                ran.append(1)
+                return real_infer(*a, **k)
+
+            engine.infer = counted
+            try:
+                t0 = time.perf_counter()
+                warm = compile_program(ALL_PROGRAMS[n](), backend="cuda",
+                                       plan_cache_dir=cache_dir)
+                warm_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                engine.infer = real_infer
+            if ran or warm.plan is not None:
+                raise AssertionError(f"plancache/{n}: the warm compile ran "
+                                     f"the analysis pipeline")
+            arrs = bench.make_inputs(n, plans[n], dims, 11, dev)
+            a, b = cold.fn(**arrs), warm.fn(**arrs)
+            for k in a:
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"plancache/{n}:{k}: warm differs")
+            print(f"plancache {n:14s} cold_compile_ms={cold_ms:.1f}  "
+                  f"warm_compile_ms={warm_ms:.1f}  infer calls warm=0  "
+                  f"bit-identical", flush=True)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+    # 5. compile_batched on K1, B = 4, against four single calls
+    for n, dims in BATCHED_PATH:
+        prog = ALL_PROGRAMS[n]()
+        examples = [bench.make_inputs(n, plans[n], dims, 20 + b, dev)
+                    for b in range(BATCH)]
+        batch = {k: torch.stack([e[k] for e in examples])
+                 for k in examples[0]}
+        bgen = compile_batched(prog, "cuda")
+        single = compile_program(prog, backend="cuda")
+        k1.launches = 0
+        out = bgen.fn(batch)
+        torch.cuda.synchronize()
+        launches = k1.launches
+        if launches == 0:
+            raise AssertionError(f"batched/{n}: no K1 launch")
+        for b, ex in enumerate(examples):
+            want = single.fn(**ex)
+            for k in want:
+                if not torch.equal(out[k][b], want[k]):
+                    raise AssertionError(f"batched/{n}:{k}[{b}]: differs "
+                                         f"from a single call")
+        batched_ms = bench.event_ms(lambda: bgen.fn(batch), flush,
+                                    runs=EMITTER_RUNS)
+        singles_ms = bench.event_ms(
+            lambda: [single.fn(**ex) for ex in examples], flush,
+            runs=EMITTER_RUNS)
+        shape = "x".join(map(str, (BATCH, *dims.values())))
+        line = (f"batched {n} {shape}: launches={launches}  bit-identical "
+                f"to {BATCH} single calls  batched_fn_ms={batched_ms:.4f}  "
+                f"singles_fn_ms={singles_ms:.4f}")
+        if n == BATCHED_PATH[0][0]:
+            # the kernels line's entry: every call held against the
+            # plain version on the same batch
+            plain = compile_batched(prog, "interp_torch", device=dev)
+            stats = timed_against_plain(n, bgen.fn, plain.fn, [batch],
+                                        flush, rate, "batched")
+            line += (f"  kernel_ms={stats['ms']:.4f}  plain_ms="
+                     f"{stats['plain_ms']:.1f}  bound_ms="
+                     f"{stats['bound_ms']:.4f}  err_vs_plain="
+                     f"{stats['max_abs_err']:.3e}")
+            entries.append({
+                "name": f"stencil2d[compile_batched {n} {shape}]",
+                "route": "cuda", "source": K1_SOURCE,
+                "replaces": K1_REPLACES, "launches": launches,
+                **stats, "bound_by": "bytes", "library_ms": None,
+                "fn_ms": batched_ms, "singles_fn_ms": singles_ms})
+        print(line + f"  card: {smi}", flush=True)
+
+    # 6. PlanServe on K1: 48 requests of mixed sizes, each answer equal
+    # to a per-example K1 compile at its true size
+    progs = {n: ALL_PROGRAMS[n]() for n in SERVE_PROGRAMS}
+    reqs = serve_requests(dev)
+    clear_compile_cache()
+    k1.launches = 0
+    with PlanServe(progs, max_batch=SERVE_MAX_BATCH) as srv:
+        if srv.backend != "cuda":
+            raise AssertionError(f"PlanServe's default backend on the card "
+                                 f"is {srv.backend!r}")
+        tickets = [(n, a, srv.submit(n, a)) for n, a in reqs]
+        answers = [(n, a, t.result(600)) for n, a, t in tickets]
+        snap = srv.metrics.snapshot()
+    launches = k1.launches
+    if launches == 0:
+        raise AssertionError("planserve: no K1 launch")
+    for n, a, out in answers:
+        want = compile_program(progs[n], backend="cuda").fn(**a)
+        for k in want:
+            if not torch.equal(out[k], want[k]):
+                raise AssertionError(f"planserve/{n}:{k}: differs from a "
+                                     f"per-example K1 call at "
+                                     f"{tuple(want[k].shape)}")
+    print(f"planserve {len(answers)} requests over {SERVE_PROGRAMS}: every "
+          f"answer bit-identical to a per-example K1 call at its true size; "
+          f"K1 launches={launches}", flush=True)
+    print(f"planserve metrics: requests={snap['requests']} batches="
+          f"{snap['batches']} requests_per_s={snap['requests_per_s']:.2f} "
+          f"latency_ms p50={snap['latency_ms']['p50']:.2f} "
+          f"p99={snap['latency_ms']['p99']:.2f} queue_wait_ms "
+          f"p50={snap['queue_wait_ms']['p50']:.2f} batch_size mean="
+          f"{snap['batch_size']['mean']:.2f} max={snap['batch_size']['max']} "
+          f"compiles={snap['compiles']['count']} "
+          f"(disk hits {snap['compiles']['disk_hits']}, "
+          f"{snap['compiles']['total_ms']:.0f} ms) buckets="
+          f"{len(snap['buckets'])}  card: {smi}", flush=True)
+    # the kernels line's entry: the first request of each program, as
+    # the server ran it (padded to its bucket), through K1 and the plain
+    # version
+    firsts = {}
+    for n, a, _ in answers:
+        firsts.setdefault(n, a)
+    stats = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for n, a in firsts.items():
+        prog = progs[n]
+        bucket = bucket_sizes(prog, request_sizes(prog, a),
+                              srv._quantum[n])  # as the server bucketed it
+        padded = pad_to_bucket(prog, a, bucket, device=dev)
+        gen = compile_program(prog, backend="cuda")
+        plain = compile_program(prog, backend="interp_torch", device=dev)
+        sizes = request_sizes(prog, a)
+        s = timed_against_plain(
+            n, lambda x: gen.fn(**x), lambda x: plain.fn(**x), [padded],
+            flush, rate, "planserve",
+            trim=lambda out: unpad_outputs(prog, out, sizes))
+        stats["max_abs_err"] = max(stats["max_abs_err"], s["max_abs_err"])
+        for key in ("ms", "plain_ms", "bound_ms"):
+            stats[key] += s[key]
+    entries.append({
+        "name": f"stencil2d[PlanServe {SERVE_REQUESTS} requests: "
+                f"{', '.join(SERVE_PROGRAMS)}]",
+        "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
+        "launches": launches, **stats, "bound_by": "bytes",
+        "library_ms": None,
+        "timed": "the first request of each program, padded to its bucket",
+        "requests_per_s": snap["requests_per_s"],
+        "latency_ms_p50": snap["latency_ms"]["p50"],
+        "latency_ms_p99": snap["latency_ms"]["p99"]})
+
+    # 7. spawned workers on the card over one plan-cache directory: a
+    # cold pool, then a warm one
+    cache_dir = tempfile.mkdtemp(prefix="plancache-", dir=build.BUILD_DIR)
+    try:
+        for label in ("cold", "warm"):
+            t0 = time.perf_counter()
+            with WorkerPool(2, SERVE_PROGRAMS, cache_dir=cache_dir,
+                            max_batch=SERVE_MAX_BATCH) as pool:
+                start_s = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                for n, a in reqs[:WORKER_REQUESTS]:
+                    out = pool.serve(n, {k: v.cpu().numpy()
+                                         for k, v in a.items()})
+                    want = compile_program(progs[n], backend="cuda").fn(**a)
+                    for k in want:
+                        if not torch.equal(torch.from_numpy(out[k]),
+                                           want[k].cpu()):
+                            raise AssertionError(f"workers/{label}/{n}:{k}: "
+                                                 f"differs from K1")
+                serve_s = time.perf_counter() - t1
+                snaps = pool.close()
+            hits = sum(s["compiles"]["disk_hits"] for s in snaps)
+            compiles = sum(s["compiles"]["count"] for s in snaps)
+            print(f"workers {label}: 2 spawned workers started in "
+                  f"{start_s:.1f} s; {WORKER_REQUESTS} requests answered in "
+                  f"{serve_s:.1f} s, each bit-identical to K1; compiles="
+                  f"{compiles} (disk hits {hits})  card: {smi}", flush=True)
+            if label == "warm" and hits != compiles:
+                raise AssertionError("workers/warm: a compile missed the "
+                                     "shared plan cache")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    print(f"compiler entry points and PlanServe: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries
 
 
 def attention_conformance(dev) -> dict:
@@ -1087,6 +1544,9 @@ def main() -> int:
     flush = bench.l2_flusher(dev)
     entries = [drive(n, dims, dev, flush, rate, smi)
                for n, dims in bench.MAIN_PATH + bench.PLANE_WINDOW_PATH]
+
+    # 4b. the compiler's entry points and PlanServe, through K1
+    entries += compiler_phase(dev, flush, rate, smi)
 
     # 5. attention conformance on the card
     t0 = time.perf_counter()

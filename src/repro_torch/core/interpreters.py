@@ -44,7 +44,7 @@ from .plan import (PLAN_FEATURES, CallPlan, KernelPlan, OutputPlan,
 from .runtime import lane_reduce
 
 #: The reference Pallas kernel's capability set (unit-stride reads, no
-#: LayoutApply constructs), declared by both of the port's interpreters.
+#: LayoutApply constructs), declared by the CUDA stencil kernel.
 STENCIL_CAPABILITIES = PLAN_FEATURES - frozenset({
     "strided_reads", "vec_loads", "align_pad", "lane_block"})
 
@@ -66,9 +66,11 @@ class InterpreterSpec:
     :data:`~repro_torch.core.plan.PLAN_FEATURES` the interpreter
     executes; ``dtypes`` the torch dtypes it builds for; ``flags``
     names the build options ``build_call`` takes.  ``layout_aware``
-    declares that ``build_call`` executes the constructs a LayoutApply
-    pass writes (carried-vector slots, ``align_pad``, ``lane_block``);
-    no interpreter of the port does yet."""
+    declares that ``build_call`` executes the constructs the LayoutApply
+    pass (:mod:`repro_torch.core.layoutapply`) writes (carried-vector
+    slots, ``align_pad``, ``lane_block``); the engine runs the pass only
+    for layout-aware interpreters (``"interp_torch"``), and the CUDA
+    kernel, like the reference's Pallas kernel, is not one."""
 
     name: str
     build_call: Callable = field(compare=False)

@@ -557,13 +557,20 @@ class PallasGenerated:
     ran.  ``interpreter`` names the registered plan interpreter
     (:mod:`repro_torch.core.interpreters`) whose ``build_call``
     executes ``kernel_plan`` inside ``fn``, and ``device`` the torch
-    device ``fn`` runs on."""
+    device ``fn`` runs on.  ``base_plan`` is the plan before the
+    LayoutApply pass (the one the on-disk plan cache stores),
+    ``layout_result`` what the pass did (``None`` when it did not run)
+    and ``vec_report`` the vectorization report a compilation asked
+    for."""
 
     kernel_plan: KernelPlan
     fn: Callable
     plan: Optional[StoragePlan] = None
     interpreter: str = "cuda"
     device: Optional[object] = None
+    base_plan: Optional[KernelPlan] = None
+    layout_result: Optional[object] = None
+    vec_report: Optional[object] = None
 
     @property
     def calls(self) -> tuple[CallPlan, ...]:
@@ -580,5 +587,6 @@ class PallasGenerated:
         """The fused schedule this execution realizes."""
         if self.plan is None:
             raise ValueError("this PallasGenerated was built from a bare "
-                             "KernelPlan: no StoragePlan/schedule exists")
+                             "KernelPlan (e.g. one loaded from the on-disk "
+                             "plan cache): no StoragePlan/schedule exists")
         return self.plan.schedule

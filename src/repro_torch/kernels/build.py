@@ -109,8 +109,11 @@ def registers(job: Job) -> tuple[int, int]:
     return res["REG"], res.get("STACK", 0) + res.get("LOCAL", 0)
 
 
-def _tmp_so(key: str) -> pathlib.Path:
-    return BUILD_DIR / f"{key}.{os.getpid()}.tmp.so"
+def _tmp(key: str, suffix: str) -> pathlib.Path:
+    """This process's own name for a file of ``key`` while it builds:
+    processes building the same kernel at once (spawned serving workers)
+    never write or read each other's files."""
+    return BUILD_DIR / f"{key}.{os.getpid()}.tmp{suffix}"
 
 
 def _start_build(job: Job, key: str):
@@ -119,22 +122,31 @@ def _start_build(job: Job, key: str):
     if key in _LIBS or (BUILD_DIR / f"{key}.so").exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = BUILD_DIR / f"{key}.cu"
+    cu = _tmp(key, ".cu")
     cu.write_text(job.source)
     return subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, f"-I{job.include}", "-o",
-         str(_tmp_so(key)), str(cu)],
+         str(_tmp(key, ".so")), str(cu)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_compile(key: str, proc) -> None:
+    """Wait for ``proc`` (if any) and move its source and library to
+    their shared names (``{key}.cu``, ``{key}.so``), each by one atomic
+    rename; raises with the compiler's log when it failed."""
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {_tmp(key, '.cu')}:\n"
+                           f"{log}")
+    os.replace(_tmp(key, ".cu"), BUILD_DIR / f"{key}.cu")
+    os.replace(_tmp(key, ".so"), BUILD_DIR / f"{key}.so")
 
 
 def _finish_build(job: Job, key: str, proc) -> ctypes.CDLL:
     """Wait for ``proc`` (if any) and load and bind the library."""
-    if proc is not None:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building "
-                               f"{BUILD_DIR / (key + '.cu')}:\n{log}")
-        os.replace(_tmp_so(key), BUILD_DIR / f"{key}.so")
+    _finish_compile(key, proc)
     lib = _LIBS.get(key)
     if lib is None:
         lib = ctypes.CDLL(str(BUILD_DIR / f"{key}.so"))

@@ -471,6 +471,36 @@ def test_emulated_kernel_matches_plain_interpreter(name, emulator):
                                        err_msg=f"{name}/chunk={chunk}:{k}")
 
 
+@pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
+def test_emulated_kernel_from_global_scratch(name, emulator, monkeypatch):
+    """With a shared-memory limit no region fits, every block keeps its
+    windows in global scratch (the launch of a region over the card's
+    227 KB) and still agrees with the plain interpreter."""
+    from repro_torch.kernels.stencil2d import emit
+    monkeypatch.setattr(emit, "SMEM_LIMIT", 4)
+    ref = compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
+                          device="cpu")
+    arrs = _arrays(ref.kernel_plan, np.random.default_rng(6))
+    want = ref.fn(**arrs)
+    runs = []
+    real = CallLayout.concretize
+
+    def recorded(self, *a, **k):
+        runs.append(real(self, *a, **k))
+        return runs[-1]
+
+    monkeypatch.setattr(CallLayout, "concretize", recorded)
+    for chunk in (2, None):
+        got = compile_program(ALL_PROGRAMS[name](), backend=emulator,
+                              device="cpu", chunk=chunk,
+                              use_cache=False).fn(**arrs)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                       atol=2e-4, rtol=1e-3,
+                                       err_msg=f"{name}/chunk={chunk}:{k}")
+    assert runs and all(r.smem_bytes == 0 for r in runs)
+
+
 PLANE_WINDOW_PROGRAMS = ("heat3d", "heat3d_stage", "heat3d_residual_norm",
                          "advect4d_halo")
 

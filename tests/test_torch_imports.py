@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "kernels.flash_decode.kernel", "kernels.ssd.kernel",
                 "kernels.ssd.ops", "kernels.ssd.ref", "configs.registry",
                 "models.lm", "models.ssm", "models.convert",
-                "serve.engine", "serve.bench"):
+                "serve.engine", "serve.bench", "serve.plans",
+                "serve.workers", "core.codegen_torch", "core.layoutapply",
+                "core.plancache", "core.runtime", "core.engine"):
         assert f"repro_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
