@@ -59,7 +59,9 @@ Phases, each of which raises on failure:
    against their plain versions on the card, float32 and bf16, causal
    or not, with and without a window, GQA groups 1, 2 and 4, head dims
    64, 80 and 128, ragged sequence lengths and ragged, windowed cache
-   lengths;
+   lengths; then the shapes of phase 8b's paths: K2 not causal with one
+   query row and with Sq = 448 over Skv = 1536 (D = 64), causal at GQA
+   groups 3 (D = 64) and 8 (D = 128), and K3 at groups 3 and 8;
 6. the LM main path at full width: qwen3-0.6b in bf16 with
    ``attn_impl="pallas"``, random weights from a seeded generator on the
    card.  Prefill of 4 prompts of 2048 tokens (K2 launched 28 times),
@@ -87,6 +89,25 @@ Phases, each of which raises on failure:
    (``"chunked"``), float32 gated and bf16 printed; greedy decode as for
    qwen3-0.6b; then timed, profiled, and K4 (and zamba2's K2 and K3)
    alone at the path's shapes;
+8b. the moe, encdec and vlm paths at full width in bf16 with
+   ``attn_impl="pallas"``, random weights from a seeded generator:
+   granite-moe-3b-a800m at full depth (32 layers, 40 experts top-8;
+   prefill of 4 x 2048 launches K2 32 times, each decode step K3 32
+   times), whisper-small at full depth (12 encoder and 12 decoder
+   layers; prefill of 4 stub frame sequences of 1536 and 448-token
+   prompts launches K2 36 times: encoder, decoder and cross attention;
+   each decode step K3 12 times and K2 12 times at one query row) and
+   qwen2-vl-72b cut from 80 to 8 layers (prefill of 4 x 2048, a 32 x 32
+   patch image then text with M-RoPE positions: K2 8 times at GQA group
+   8; each decode step K3 8 times).  The float32 prefill is gated
+   against ``"chunked"`` (granite only for gross faults, with the count
+   of token-layers whose expert choice differs), whisper's float32
+   decode over the prefill's encoder K/V against the prefill's logits;
+   bf16 prefill and greedy decode (whisper's also over cross caches
+   holding the prefill's encoder K/V) are held against the plain paths
+   and printed, every K2 and K3 call of them against its plain version;
+   then timed, profiled, and K2 at every shape of the driven runs and K3
+   alone beside their plain versions, bounds and SDPA;
 9. the ``kernels`` line: for each kernel and main path (K1's
    ``compile_batched`` and PlanServe paths of phase 4b among them), its
    launches in one driven run (counts set to zero just before it), its
@@ -182,6 +203,25 @@ SSM_PATHS = (("mamba2-130m", 24), ("zamba2-2.7b", 12))
 #: else.
 EARLIER_MS = {("K2", "qwen3-0.6b"): 3.3810, ("K2", "zamba2-2.7b"): 4.6541,
               ("K3", "qwen3-0.6b"): 0.1146, ("K3", "zamba2-2.7b"): 0.1554}
+#: Phase 5's K2 shapes of the moe, encdec and vlm paths: (B, Sq, Skv, H,
+#: KVH, D, causal).
+NEW_K2_SHAPES = ((4, 1, 1536, 12, 12, 64, False),
+                 (2, 448, 1536, 12, 12, 64, False),
+                 (2, 333, 333, 24, 8, 64, True),
+                 (1, 300, 300, 64, 8, 128, True))
+#: Phase 5's K3 shapes of those paths: (H, KVH, D), groups 3 and 8.
+NEW_K3_SHAPES = ((24, 8, 64), (64, 8, 128))
+#: Phase 8b, the moe, encdec and vlm paths at full width: (arch, layers).
+#: granite-moe-3b-a800m and whisper-small at full depth; qwen2-vl-72b cut
+#: from 80 to 8 layers, as its full depth does not fit one card (145 GB
+#: of bf16 weights against 80 GB).
+FAMILY_PATHS = (("granite-moe-3b-a800m", 32), ("whisper-small", 12),
+                ("qwen2-vl-72b", 8))
+#: whisper-small's decoder prompts and caches: its text context of 448
+#: tokens (arXiv:2212.04356).
+WHISPER_TEXT = 448
+#: qwen2-vl-72b's prefill: a VLM_IMAGE x VLM_IMAGE patch image, then text.
+VLM_IMAGE = 32
 LM_ARCH = "qwen3-0.6b"
 PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_PROMPT, DECODE_STEPS, MAX_SEQ = 4, 16, 16, 4096
@@ -804,6 +844,37 @@ def attention_conformance(dev) -> dict:
                        f"window={window}")
         key = ("flash_decode", f"{qdt}/{cdt}")
         errs[key] = tuple(map(max, errs.get(key, (0.0, 0.0)), e))
+    # the moe, encdec and vlm paths' shapes.  K2 not causal with one query
+    # row and with Sq = 448 over Skv = 1536 (whisper-small's cross
+    # attention, D = 64, group 1), causal at group 3 (granite-moe-3b: 24
+    # heads over 8, D = 64) and group 8 (qwen2-vl-72b: 64 over 8, D =
+    # 128), ragged where the paths are not; K3 at groups 3 and 8
+    for dt, (B, Sq, Skv, H, KVH, D, causal) in itertools.product(
+            (torch.float32, torch.bfloat16), NEW_K2_SHAPES):
+        q = rnd(B, Sq, H, D, dtype=dt)
+        k = rnd(B, Skv, KVH, D, dtype=dt)
+        v = rnd(B, Skv, KVH, D, dtype=dt)
+        got = k2.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = k2.flash_attention_plain(q, k, v, causal=causal, window=None,
+                                        q_offset=Skv - Sq, scale=D ** -0.5)
+        e = attn_close(got, want, f"K2 {dt} B={B} Sq={Sq} Skv={Skv} H={H} "
+                       f"KVH={KVH} D={D} causal={causal}")
+        key = ("flash_attention", str(dt))
+        errs[key] = tuple(map(max, errs.get(key, (0.0, 0.0)), e))
+    for dt, (H, KVH, D) in itertools.product(
+            (torch.float32, torch.bfloat16), NEW_K3_SHAPES):
+        q = rnd(3, H, D, dtype=dt)
+        kc = rnd(3, 1000, KVH, D, dtype=dt)
+        vc = rnd(3, 1000, KVH, D, dtype=dt)
+        lengths = torch.tensor([1, 517, 1000], dtype=torch.int32, device=dev)
+        got = k3.flash_decode(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        want = k3.flash_decode_plain(q, kc, vc, lengths, window=None,
+                                     scale=D ** -0.5)
+        e = attn_close(got, want, f"K3 {dt} H={H} KVH={KVH} D={D}")
+        key = ("flash_decode", f"{dt}/{dt}")
+        errs[key] = tuple(map(max, errs.get(key, (0.0, 0.0)), e))
     return errs
 
 
@@ -821,6 +892,44 @@ def lm_check(got, want, tag: str, rel_l2: float, max_abs: float) -> dict:
         raise AssertionError(f"{tag}: rel L2 {r:.3e} (limit {rel_l2}), max "
                              f"abs err {m:.3e} (limit {max_abs})")
     return {"rel_l2": r, "max_abs_err": m}
+
+
+def profile(arch: str, runs) -> None:
+    """Where the device time goes (torch.profiler), for each ``(tag, fn,
+    runs, event_ms)``: the kernels' device time over the profiled wall
+    time (a lower bound of the busy share, the profiler adds host time
+    to every operator) and over the same work's CUDA-event time
+    ``event_ms`` without the profiler."""
+    from repro_torch.serve import bench as sb
+
+    for tag, fn, n, plain_wall in runs:
+        wall, dev_ms, top = sb.device_share(fn, n)
+        if dev_ms == 0:
+            print(f"profile {arch} {tag}: wall_ms={wall:.3f}, the profiler "
+                  f"saw no device time: busy share not measured", flush=True)
+            continue
+        print(f"profile {arch} {tag}: device_ms={dev_ms:.3f}  profiled "
+              f"wall_ms={wall:.3f} (busy >= {100 * dev_ms / wall:.1f} %)  "
+              f"event ms={plain_wall:.3f} (busy ~ "
+              f"{100 * dev_ms / plain_wall:.1f} %)  top kernels (ms): "
+              + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
+
+
+def launch_counts() -> dict:
+    """The launch counts of the LM kernel wrappers K2-K4."""
+    from repro_torch.kernels.flash_attention import kernel as k2
+    from repro_torch.kernels.flash_decode import kernel as k3
+    from repro_torch.kernels.ssd import kernel as k4
+
+    return {"K2": k2.launches, "K3": k3.launches, "K4": k4.launches}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as k2
+    from repro_torch.kernels.flash_decode import kernel as k3
+    from repro_torch.kernels.ssd import kernel as k4
+
+    k2.launches = k3.launches = k4.launches = 0
 
 
 def serve_lm(dev, flush, rate: float, smi: str) -> list:
@@ -947,25 +1056,11 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
           f"({step_split.split_blocks} split blocks, {step_split.working} "
           f"holding keys)  "
           f"card: {smi}", flush=True)
-    # where the device time goes (torch.profiler): the kernels' device
-    # time over the profiled wall time (a lower bound of the busy share,
-    # the profiler adds host time to every operator) and over the same
-    # work's CUDA-event time without the profiler
-    for tag, fn, runs, plain_wall in (
-            ("prefill", lambda: prefill(params, {"tokens": tokens}), 1,
-             prefill_ms),
-            ("decode step", lambda: decode_step(params, feed[:, -1], caches,
-                                                lengths, cfg), 5, step_ms)):
-        wall, dev_ms, top = sb.device_share(fn, runs)
-        if dev_ms == 0:
-            print(f"profile {tag}: wall_ms={wall:.3f}, the profiler saw no "
-                  f"device time: busy share not measured", flush=True)
-            continue
-        print(f"profile {tag}: device_ms={dev_ms:.3f}  profiled wall_ms="
-              f"{wall:.3f} (busy >= {100 * dev_ms / wall:.1f} %)  event "
-              f"ms={plain_wall:.3f} (busy ~ {100 * dev_ms / plain_wall:.1f} "
-              f"%)  top kernels (ms): "
-              + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
+    profile(LM_ARCH, (
+        ("prefill", lambda: prefill(params, {"tokens": tokens}), 1,
+         prefill_ms),
+        ("decode step", lambda: decode_step(params, feed[:, -1], caches,
+                                            lengths, cfg), 5, step_ms)))
     del caches
 
     # K2 alone at the prefill shape, K3 alone over a full 4096-position
@@ -992,11 +1087,14 @@ def serve_lm(dev, flush, rate: float, smi: str) -> list:
 
 
 def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
-             calls: int, prefill_ms: float) -> dict:
-    """K2 alone on (q, k, v), causal: its wrapper against the plain
-    version, then its launch timed beside the plain version, one
-    ``scaled_dot_product_attention`` call and its bound.  Returns the
-    fields of its ``kernels`` entry but the name and launches."""
+             calls: int, prefill_ms: float, causal: bool = True,
+             part: str = "prefill") -> dict:
+    """K2 alone on (q, k, v) (``causal``, or not): its wrapper against the
+    plain version, then its launch timed beside the plain version, one
+    ``scaled_dot_product_attention`` call and its bound, and its
+    ``calls`` launches' share of ``prefill_ms`` (the time of the driven
+    ``part``).  Returns the fields of its ``kernels`` entry but the name
+    and launches."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as k2
@@ -1004,34 +1102,38 @@ def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
     from repro_torch.serve import bench as sb
 
     B, S, H, D = q.shape
-    KVH = k.shape[2]
-    run = dict(causal=True, window=None, q_offset=0, scale=D ** -0.5)
+    KVH, Skv = k.shape[2], k.shape[1]
+    run = dict(causal=causal, window=None, q_offset=Skv - S,
+               scale=D ** -0.5)
     want = k2.flash_attention_plain(q, k, v, **run)
     err, rel = attn_close(k2.flash_attention_fwd(q, k, v, **run), want,
-                          f"K2 at the {tag} prefill shape")
+                          f"K2 at the {tag} shape")
     # time the launch alone, through the helper the wrapper launches by
     o, k2_run = k2.prepare(q, k, v, **run)
     blocks = k2_run()
-    attn_close(o, want, f"K2 at the {tag} prefill shape, timed launch")
+    attn_close(o, want, f"K2 at the {tag} shape, timed launch")
     ms = bench.device_ms(k2_run, flush)
     plain_ms = bench.device_ms(
         lambda: k2.flash_attention_plain(q, k, v, **run), flush, runs=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = bench.device_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                enable_gqa=True), flush)
-    flops, nbytes = sb.attention_work(q, k, v, causal=True, window=None,
-                                      q_offset=0)
+    flops, nbytes = sb.attention_work(q, k, v, causal=causal, window=None,
+                                      q_offset=Skv - S)
     bound, by = sb.bound_ms(flops, nbytes,
                             sb.bf16_peak(torch.cuda.get_device_name(q.device)),
                             rate)
-    print(f"K2 ({tag}: B={B} S={S} H={H} KVH={KVH} D={D} causal "
-          f"{str(q.dtype).replace('torch.', '')}): ms={ms:.4f} (the earlier "
-          f"kernel, with its launch: {EARLIER_MS['K2', tag]:.4f})  "
-          f"plain_ms={plain_ms:.3f}  sdpa_ms={lib_ms:.4f}  "
+    earlier = EARLIER_MS.get(("K2", tag))
+    print(f"K2 ({tag}: B={B} Sq={S} Skv={Skv} H={H} KVH={KVH} D={D} "
+          f"{'causal' if causal else 'non-causal'} "
+          f"{str(q.dtype).replace('torch.', '')}): ms={ms:.4f} "
+          + (f"(the earlier kernel, with its launch: {earlier:.4f})  "
+             if earlier else "")
+          + f"plain_ms={plain_ms:.3f}  sdpa_ms={lib_ms:.4f}  "
           f"flops={flops:.3e} bytes={nbytes}  bound_ms={bound:.4f} ({by})  "
           f"{flops / ms / 1e9:.1f} TFLOP/s  "
-          f"{100 * ms * calls / prefill_ms:.1f} % of prefill  "
+          f"{calls} calls {100 * ms * calls / prefill_ms:.1f} % of {part}  "
           f"blocks={blocks}  max_abs_err={err:.3e}  "
           f"rel_l2_err={rel:.3e}  card: {smi}", flush=True)
     return {"route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -1041,12 +1143,12 @@ def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
 
 
 def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
-             rate: float, smi: str) -> dict:
-    """K3 alone over a full ``MAX_SEQ``-position cache of random values
+             rate: float, smi: str, max_seq: int = MAX_SEQ) -> dict:
+    """K3 alone over a full ``max_seq``-position cache of random values
     from ``gen``: its wrapper against the plain version, then its launch
-    timed beside the plain version, one SDPA call and its bound.
-    Returns the fields of its ``kernels`` entry but the name and
-    launches."""
+    timed beside the plain version, one SDPA call and its bound; then at
+    the main path's lengths.  Returns the fields of its ``kernels``
+    entry but the name and launches."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import kernel as k3
@@ -1055,9 +1157,9 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
 
     dev = gen.device
     q = torch.randn((B, H, D), generator=gen, device=dev).to(dt)
-    kc = torch.randn((B, MAX_SEQ, KVH, D), generator=gen, device=dev).to(dt)
-    vc = torch.randn((B, MAX_SEQ, KVH, D), generator=gen, device=dev).to(dt)
-    lengths = torch.full((B,), MAX_SEQ, dtype=torch.int32, device=dev)
+    kc = torch.randn((B, max_seq, KVH, D), generator=gen, device=dev).to(dt)
+    vc = torch.randn((B, max_seq, KVH, D), generator=gen, device=dev).to(dt)
+    lengths = torch.full((B,), max_seq, dtype=torch.int32, device=dev)
     want = k3.flash_decode_plain(q, kc, vc, lengths, window=None,
                                  scale=D ** -0.5)
     err, rel = attn_close(k3.flash_decode(q, kc, vc, lengths), want,
@@ -1080,12 +1182,14 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
     flops, nbytes = sb.decode_work(q, kc, vc, lengths, window=None)
     peak = sb.bf16_peak(torch.cuda.get_device_name(dev))
     bound, by = sb.bound_ms(flops, nbytes, peak, rate)
-    print(f"K3 ({tag}: B={B} H={H} KVH={KVH} D={D} S=lengths={MAX_SEQ} "
+    earlier = EARLIER_MS.get(("K3", tag))
+    print(f"K3 ({tag}: B={B} H={H} KVH={KVH} D={D} S=lengths={max_seq} "
           f"{str(dt).replace('torch.', '')} cache, blocks={blocks} "
           f"split+combine, {res.working} split blocks holding keys): "
-          f"ms={ms:.4f} (the earlier kernel, with its launch: "
-          f"{EARLIER_MS['K3', tag]:.4f})  "
-          f"plain_ms={plain_ms:.4f}  "
+          f"ms={ms:.4f} "
+          + (f"(the earlier kernel, with its launch: {earlier:.4f})  "
+             if earlier else "")
+          + f"plain_ms={plain_ms:.4f}  "
           f"sdpa_ms={lib_ms:.4f}  bytes={nbytes}  bound_ms={bound:.4f} "
           f"({by})  {nbytes / ms / 1e6:.1f} GB/s  max_abs_err={err:.3e}  "
           f"rel_l2_err={rel:.3e}  card: {smi}", flush=True)
@@ -1098,12 +1202,12 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
     res = k3_short()
     torch.cuda.synchronize()
     short_err = attn_close(o, want, f"K3 at {tag} lengths {int(short[0])} "
-                           f"of {MAX_SEQ}, timed launch")
+                           f"of {max_seq}, timed launch")
     short_ms = bench.device_ms(k3_short, flush)
     flops, nbytes = sb.decode_work(q, kc, vc, short, window=None)
     short_bound, short_by = sb.bound_ms(flops, nbytes, peak, rate)
     print(f"K3 ({tag} at the main path's lengths {int(short[0])} of "
-          f"{MAX_SEQ}): ms={short_ms:.4f}  split blocks launched="
+          f"{max_seq}): ms={short_ms:.4f}  split blocks launched="
           f"{res.split_blocks} holding keys={res.working} (+"
           f"{res.combine_blocks} combine)  bytes={nbytes}  "
           f"bound_ms={short_bound:.6f} ({short_by})  "
@@ -1211,8 +1315,6 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     in the hybrid family, K2 and K3) alone at the path's shapes.
     Returns their entries of the ``kernels`` line."""
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention import kernel as k2
-    from repro_torch.kernels.flash_decode import kernel as k3
     from repro_torch.kernels.ssd import kernel as k4
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.stencil2d import bench
@@ -1221,12 +1323,6 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     from repro_torch.models.lm import cast
     from repro_torch.serve import bench as sb
     from repro_torch.serve import greedy_decode, make_prefill_step
-
-    def counts():
-        return {"K4": k4.launches, "K2": k2.launches, "K3": k3.launches}
-
-    def zero_counts():
-        k2.launches = k3.launches = k4.launches = 0
 
     name = torch.cuda.get_device_name(dev)
     cfg = ARCHS[arch].replace(attn_impl="pallas", n_layers=layers)
@@ -1254,10 +1350,10 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     prefill = make_prefill_step(cfg, device=dev)
     with contextlib.ExitStack() as stack:
         calls = kernel_checks(stack)
-        zero_counts()
+        zero_launch_counts()
         logits, caches = prefill(params, batch)
         torch.cuda.synchronize()
-        launches = counts()
+        launches = launch_counts()
     expect = {"K4": layers, "K2": groups, "K3": 0}
     if launches != expect:
         raise AssertionError(f"{arch} prefill: launches {launches}, "
@@ -1267,7 +1363,7 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
         raise AssertionError(f"{arch} prefill: logits "
                              f"{tuple(logits.shape)} or non-finite")
     k4_call = worst(calls["K4"])
-    _, k4_args, k4_kw = calls["K4"][0]
+    _, k4_args, k4_kw, _ = calls["K4"][0]
     k2_call = worst(calls["K2"])
     k2_args = calls["K2"][0][1] if groups else None
     del calls
@@ -1316,11 +1412,11 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     seen = []
     with contextlib.ExitStack() as stack:
         calls = kernel_checks(stack)
-        zero_counts()
+        zero_launch_counts()
         out = greedy_decode(params, cfg, prompt, DECODE_STEPS, MAX_SEQ,
                             cache_dtype=dt, device=dev, on_logits=seen.append)
         torch.cuda.synchronize()
-        dlaunches = counts()
+        dlaunches = launch_counts()
         k3_call = worst(calls["K3"])
         del calls
     expect = {"K4": 0, "K2": 0, "K3": groups * n_steps}
@@ -1388,20 +1484,10 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
           f"step_ms={step_ms:.3f} at length {int(lengths[0])}  "
           f"tokens/s={DECODE_B / step_ms * 1e3:.0f}  card: {smi}",
           flush=True)
-    for tag, fn, runs, plain_wall in (
-            ("prefill", lambda: prefill(params, batch), 1, prefill_ms),
-            ("decode step", lambda: decode_step(params, feed[:, -1], caches,
-                                                lengths, cfg), 5, step_ms)):
-        wall, dev_ms, top = sb.device_share(fn, runs)
-        if dev_ms == 0:
-            print(f"profile {arch} {tag}: wall_ms={wall:.3f}, the profiler "
-                  f"saw no device time: busy share not measured", flush=True)
-            continue
-        print(f"profile {arch} {tag}: device_ms={dev_ms:.3f}  profiled "
-              f"wall_ms={wall:.3f} (busy >= {100 * dev_ms / wall:.1f} %)  "
-              f"event ms={plain_wall:.3f} (busy ~ "
-              f"{100 * dev_ms / plain_wall:.1f} %)  top kernels (ms): "
-              + "; ".join(f"{k} {t:.3f}" for k, t in top), flush=True)
+    profile(arch, (
+        ("prefill", lambda: prefill(params, batch), 1, prefill_ms),
+        ("decode step", lambda: decode_step(params, feed[:, -1], caches,
+                                            lengths, cfg), 5, step_ms)))
     del caches
 
     # K4 alone on the first layer's inputs of the driven prefill
@@ -1462,6 +1548,365 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
                      f"bf16 cache]",
              "launches": dlaunches["K3"], **e3, "max_abs_err": k3_call[0],
              "rel_l2_err": k3_call[1], "decode_step_ms": step_ms}]
+    return entries
+
+
+def image_then_text(n: int, S: int, B: int, dev) -> torch.Tensor:
+    """M-RoPE positions (3, B, S) of an n x n patch image (t = 0, h = row,
+    w = column) followed by text whose three components are equal and
+    continue from the image's largest component plus one."""
+    r = torch.arange(n * n, device=dev)
+    img = torch.stack([torch.zeros_like(r), r // n, r % n])
+    start = int(img.max()) + 1
+    text = torch.arange(start, start + S - n * n, device=dev).expand(3, -1)
+    return torch.cat([img, text], dim=1)[:, None].expand(3, B, S)
+
+
+def family_batch(cfg, gen, dev) -> dict:
+    """A family path's prefill batch: B x S tokens from ``gen``; whisper
+    at its text context with the stub frontend's frame embeddings (B,
+    enc_seq, d) from ``gen``, as the reference's ``enc_frames`` stub;
+    qwen2-vl with the M-RoPE positions of an image, then text."""
+    S = WHISPER_TEXT if cfg.family == "encdec" else PREFILL_S
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, S),
+                                     generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.randn(
+            (PREFILL_B, cfg.encdec.enc_seq, cfg.d_model), generator=gen,
+            device=dev)
+    if cfg.mrope_sections is not None:
+        batch["positions"] = image_then_text(VLM_IMAGE, S, PREFILL_B, dev)
+    return batch
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While active, the expert choice (B, S, K, sorted) of every
+    ``moe.route`` call is appended to the yielded list."""
+    from repro_torch.models import moe
+
+    real, seen = moe.route, []
+
+    def wrapper(p, x, cfg):
+        out = real(p, x, cfg)
+        seen.append(out[2].sort(-1).values)
+        return out
+
+    moe.route = wrapper
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def route_mismatches(got: list, want: list) -> int:
+    """Token-layers whose expert choice differs between two runs."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routed layers against {len(want)}")
+    return sum(int((g != w).any(-1).sum()) for g, w in zip(got, want))
+
+
+def by_signature(calls: list) -> list:
+    """Checked calls grouped by signature, in first-call order: (args,
+    kwargs, the number of calls, their worst (abs, relative L2) errors)."""
+    groups: dict = {}
+    for errs, args, kw, sig in calls:
+        if sig not in groups:
+            groups[sig] = [args, kw, 0, (0.0, 0.0)]
+        g = groups[sig]
+        g[2] += 1
+        g[3] = tuple(map(max, g[3], errs))
+    return list(groups.values())
+
+
+def serve_family(arch: str, layers: int, dev, flush, rate: float,
+                 smi: str) -> list:
+    """A moe, encdec or vlm path at full width with ``layers`` layers:
+    the float32 prefill gated against ``"chunked"``; the bf16 prefill,
+    then decode, each driven once with the launch counts set to 0 just
+    before it and every K2 and K3 call held against its plain version;
+    timed and profiled; then K2 and K3 alone at the path's shapes.
+    Returns their entries of the ``kernels`` line."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import cast
+    from repro_torch.serve import bench as sb
+    from repro_torch.serve import (greedy_decode, make_decode_step,
+                                   make_prefill_step)
+
+    cfg = ARCHS[arch].replace(attn_impl="pallas", n_layers=layers)
+    moe, encdec = cfg.family == "moe", cfg.family == "encdec"
+    n_attn = layers * 3 if encdec else layers  # K2 calls of a prefill
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    masters = init_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    what = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_ff_expert="
+            f"{cfg.moe.d_ff_expert}" if moe else f"d_ff={cfg.d_ff}")
+    if encdec:
+        what += (f" encoder {cfg.encdec.n_enc_layers} layers over "
+                 f"enc_seq={cfg.encdec.enc_seq} stub frames")
+    if cfg.mrope_sections:
+        what += f" M-RoPE sections {cfg.mrope_sections}"
+    print(f"lm: {arch} ({cfg.family}) {layers} of {ARCHS[arch].n_layers} "
+          f"layers"
+          + (f" (cut from {ARCHS[arch].n_layers}: the full depth's bf16 "
+             f"weights do not fit the card)"
+             if layers < ARCHS[arch].n_layers else "")
+          + f" d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"head_dim={cfg.hd} {what} vocab={cfg.vocab}, float32 masters "
+          f"from seed 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = family_batch(cfg, gen, dev)
+    S = batch["tokens"].shape[1]
+    route_rec = recorded_routes if moe else contextlib.nullcontext
+
+    # float32: every call checked, the logits gated against "chunked"
+    # (granite only for gross faults: a router tie broken by a 1e-7
+    # difference sends a token to another expert), the expert choices
+    # of the two paths compared
+    f32 = cfg.replace(dtype="float32")
+    with contextlib.ExitStack() as stack:
+        calls32 = kernel_checks(stack)
+        routes32 = stack.enter_context(route_rec())
+        zero_launch_counts()
+        got32, caches32 = make_prefill_step(f32, device=dev)(masters, batch)
+        torch.cuda.synchronize()
+        launches32 = launch_counts()
+        k2_call32 = worst(calls32["K2"])
+        del calls32
+    if launches32 != {"K2": n_attn, "K3": 0, "K4": 0}:
+        raise AssertionError(f"{arch} float32 prefill: launches "
+                             f"{launches32}, expected K2 x {n_attn}")
+    with route_rec() as plain_routes32:
+        want32, _ = make_prefill_step(f32.replace(attn_impl="chunked"),
+                                      device=dev)(masters, batch)
+    check32 = lm_check(got32, want32, f"{arch} float32 prefill vs chunked",
+                       **(SSM_LM_TOL if moe else LM_TOL["float32"]))
+    mismatch32 = route_mismatches(routes32, plain_routes32) if moe else None
+    del got32, want32, routes32, plain_routes32
+    dec32 = None
+    if encdec:
+        # the decode recurrence over the prefill's encoder K/V against
+        # the prefill's own logits on the same tokens, gated
+        n = DECODE_PROMPT + DECODE_STEPS - 1
+        caches = init_caches(f32, PREFILL_B, WHISPER_TEXT,
+                             cache_dtype=torch.float32, device=dev)
+        caches["cross_k"].copy_(caches32[1][0])
+        caches["cross_v"].copy_(caches32[1][1])
+        fwd = forward(masters, {**batch, "tokens": batch["tokens"][:, :n]},
+                      f32)["logits"]
+        lengths = torch.zeros((PREFILL_B,), dtype=torch.int32, device=dev)
+        dec32 = {"rel_l2": 0.0, "max_abs_err": 0.0}
+        for t in range(n):
+            lengths = lengths + 1
+            got = decode_step(masters, batch["tokens"][:, t], caches,
+                              lengths, f32)
+            c = lm_check(got, fwd[:, t], f"{arch} float32 decode step {t} "
+                         f"vs prefill", **LM_TOL["float32"])
+            dec32 = {k: max(dec32[k], c[k]) for k in dec32}
+        del caches, fwd
+    del caches32
+    params = cast(masters, dt)
+    del masters
+    torch.cuda.empty_cache()
+
+    # bf16 prefill, every call checked
+    prefill = make_prefill_step(cfg, device=dev)
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        routes = stack.enter_context(route_rec())
+        zero_launch_counts()
+        logits, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        k2_call, k2_groups = worst(calls["K2"]), by_signature(calls["K2"])
+        del calls
+    if launches != {"K2": n_attn, "K3": 0, "K4": 0}:
+        raise AssertionError(f"{arch} prefill: launches {launches}, "
+                             f"expected K2 x {n_attn}")
+    if logits.shape != (PREFILL_B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill: logits "
+                             f"{tuple(logits.shape)} or non-finite")
+    enc_kv = caches[1] if encdec else None
+    del caches
+    with route_rec() as plain_routes:
+        chunked, _ = make_prefill_step(cfg.replace(attn_impl="chunked"),
+                                       device=dev)(params, batch)
+    spread = {"logits_vs_chunked": sb.rel_l2(logits, chunked)}
+    if moe:
+        spread["expert_mismatches"] = route_mismatches(routes, plain_routes)
+    del chunked, routes, plain_routes
+    prefill_ms = bench.event_ms(lambda: prefill(params, batch), flush,
+                                runs=5)
+    print(f"{arch} prefill B={PREFILL_B} S={S}"
+          + (f" + {cfg.encdec.enc_seq} encoder frames" if encdec else "")
+          + (f" ({VLM_IMAGE}x{VLM_IMAGE}-patch image, then text, M-RoPE)"
+             if cfg.mrope_sections else "")
+          + f": launches {launches}  every K2 call vs plain (max abs, rel "
+          f"L2): bf16 {k2_call} f32 {k2_call32}  float32 logits vs chunked "
+          f"{check32}"
+          + (f"  float32 expert choices differing from chunked: "
+             f"{mismatch32} of {layers * PREFILL_B * S} token-layers"
+             if moe else "")
+          + (f"  float32 decode over the encoder K/V vs prefill {dec32}"
+             if encdec else "")
+          + f"  bf16 {spread}  prefill_ms={prefill_ms:.3f}  "
+          f"tokens/s={PREFILL_B * S / prefill_ms * 1e3:.0f}  card: {smi}",
+          flush=True)
+
+    # decode: B=4, 16-token prompts, 16 steps.  greedy_decode as the
+    # reference's (whisper over zeroed cross caches), every call checked
+    prompt = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_PROMPT),
+                           generator=gen, device=dev)
+    n_steps = DECODE_PROMPT + DECODE_STEPS - 1
+    max_seq = WHISPER_TEXT if encdec else MAX_SEQ
+    expect = {"K2": layers * n_steps if encdec else 0,
+              "K3": layers * n_steps, "K4": 0}
+    seen = []
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_launch_counts()
+        out = greedy_decode(params, cfg, prompt, DECODE_STEPS, max_seq,
+                            cache_dtype=dt, device=dev, on_logits=seen.append)
+        torch.cuda.synchronize()
+        dlaunches = launch_counts()
+        k3_call, dk2_groups = worst(calls["K3"]), by_signature(calls["K2"])
+        del calls
+    if dlaunches != expect:
+        raise AssertionError(f"{arch} greedy decode: launches {dlaunches}, "
+                             f"expected {expect}")
+    if out.shape != (DECODE_B, DECODE_STEPS) or \
+            not bool(((out >= 0) & (out < cfg.vocab)).all()) or \
+            not all(bool(torch.isfinite(x).all()) for x in seen):
+        raise AssertionError(f"{arch} decode: tokens {tuple(out.shape)} out "
+                             f"of range, or non-finite logits")
+    feed = torch.cat([prompt, out[:, :-1]], dim=1)
+    ref_cfg = cfg.replace(attn_impl="reference")
+
+    def run(step_cfg, caches, on_logits=lambda logits: None):
+        """The decode steps over ``caches`` along ``feed``'s tokens;
+        returns the lengths after the last."""
+        step = make_decode_step(step_cfg, device=dev)
+        lengths = torch.zeros((DECODE_B,), dtype=torch.int32, device=dev)
+        for t in range(n_steps):
+            lengths = lengths + 1
+            on_logits(step(params, feed[:, t], caches, lengths))
+        return lengths
+
+    def new_caches(step_cfg):
+        """Decode caches; whisper's cross caches hold the bf16 prefill's
+        encoder K/V (its first DECODE_B sequences)."""
+        caches = init_caches(step_cfg, DECODE_B, max_seq, cache_dtype=dt,
+                             device=dev)
+        if encdec:
+            caches["cross_k"].copy_(enc_kv[0][:, :DECODE_B])
+            caches["cross_v"].copy_(enc_kv[1][:, :DECODE_B])
+        return caches
+
+    def vs_plain(got: list, caches) -> float:
+        """The largest relative L2 distance of ``got``'s per-step logits
+        from the plain path's (reference attention) on the same tokens."""
+        want = []
+        run(ref_cfg, caches, want.append)
+        return max(sb.rel_l2(g, w) for g, w in zip(got, want))
+
+    zero_cross = init_caches(ref_cfg, DECODE_B, max_seq, cache_dtype=dt,
+                             device=dev)
+    greedy_vs_ref = vs_plain(seen, zero_cross)
+    del zero_cross
+    if encdec:
+        # whisper's serving path: decode steps over caches whose cross
+        # caches hold the prefill's encoder K/V, every call checked
+        seen, caches = [], new_caches(cfg)
+        with contextlib.ExitStack() as stack:
+            calls = kernel_checks(stack)
+            zero_launch_counts()
+            lengths = run(cfg, caches, seen.append)
+            torch.cuda.synchronize()
+            dlaunches = launch_counts()
+            k3_call = worst(calls["K3"])
+            dk2_call, dk2_groups = worst(calls["K2"]), by_signature(
+                calls["K2"])
+            del calls
+        if dlaunches != expect:
+            raise AssertionError(f"{arch} decode over the encoder K/V: "
+                                 f"launches {dlaunches}, expected {expect}")
+        if not all(bool(torch.isfinite(x).all()) for x in seen):
+            raise AssertionError(f"{arch} decode: non-finite logits")
+        decode_vs_ref = vs_plain(seen, new_caches(ref_cfg))
+        del enc_kv
+    else:
+        caches = new_caches(cfg)
+        lengths = run(cfg, caches)
+        decode_vs_ref = greedy_vs_ref
+    # a steady decode step: the kernel path's caches at the prompt's end
+    step_ms = bench.event_ms(
+        lambda: decode_step(params, feed[:, -1], caches, lengths, cfg),
+        flush, runs=20)
+    print(f"{arch} decode B={DECODE_B} prompt={DECODE_PROMPT} "
+          f"steps={DECODE_STEPS} bf16 caches of {max_seq}"
+          + (" (greedy_decode over zeroed cross caches, as the reference's; "
+             "then make_decode_step over cross caches holding the "
+             "prefill's encoder K/V)" if encdec else "")
+          + f": launches {dlaunches}  every K3 call vs plain {k3_call}"
+          + (f"  every K2 call (one query row) vs plain "
+             f"{dk2_call}" if encdec else "")
+          + f"  per-step logits rel L2 vs reference attention: greedy "
+          f"{greedy_vs_ref:.3e}"
+          + (f", over the encoder K/V {decode_vs_ref:.3e}" if encdec else "")
+          + f"  step_ms={step_ms:.3f} at length {int(lengths[0])}  "
+          f"tokens/s={DECODE_B / step_ms * 1e3:.0f}  card: {smi}",
+          flush=True)
+    profile(arch, (
+        ("prefill", lambda: prefill(params, batch), 1, prefill_ms),
+        ("decode step", lambda: decode_step(params, feed[:, -1], caches,
+                                            lengths, cfg), 5, step_ms)))
+    del caches
+
+    # K2 alone at each shape of the driven runs, on its first call's
+    # inputs; K3 alone over a full cache of the path's length
+    entries = []
+    for part, groups, ms in (("prefill", k2_groups, prefill_ms),
+                             ("decode step", dk2_groups if encdec else [],
+                              step_ms)):
+        for (q, k, v), kw, n, (err, rel) in groups:
+            B, Sq, H, D = q.shape
+            Skv, KVH = k.shape[1], k.shape[2]
+            role = ("self" if kw["causal"] else
+                    "encoder" if part == "prefill" and encdec and Sq == Skv
+                    else "cross")
+            # calls in one prefill, or in one decode step
+            per = n if part == "prefill" else n // n_steps
+            e2 = k2_alone(q, k, v, f"{arch} {part} {role}", flush, rate, smi,
+                          calls=per, prefill_ms=ms, causal=kw["causal"],
+                          part=part)
+            entries.append({
+                "name": f"flash_attention[{arch} {part} {role} B={B} "
+                        f"Sq={Sq} Skv={Skv} H={H} KVH={KVH} D={D} "
+                        f"{'causal' if kw['causal'] else 'non-causal'} "
+                        f"bf16]",
+                "launches": n, **e2, "max_abs_err": err, "rel_l2_err": rel,
+                f"{part.replace(' ', '_')}_ms": ms})
+        del groups
+    del k2_groups, dk2_groups
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    e3 = k3_alone(DECODE_B, H, KVH, D, dt, gen, arch, flush, rate, smi,
+                  max_seq=max_seq)
+    entries.append({
+        "name": f"flash_decode[{arch} B={DECODE_B} S={max_seq} H={H} "
+                f"KVH={KVH} D={D} bf16 cache]",
+        "launches": dlaunches["K3"], **e3, "max_abs_err": k3_call[0],
+        "rel_l2_err": k3_call[1], "decode_step_ms": step_ms})
+    if encdec:
+        # the decode cross attention's function as K3 would run it, over
+        # the whole encoder cache; printed beside K2's one query row
+        k3_alone(DECODE_B, H, KVH, D, dt, gen,
+                 f"{arch} cross attention as a decode over the encoder K/V",
+                 flush, rate, smi, max_seq=cfg.encdec.enc_seq)
     return entries
 
 
@@ -1569,6 +2014,14 @@ def main() -> int:
     # 8. the SSM main paths at full width
     for arch, layers in SSM_PATHS:
         entries += serve_ssm(arch, layers, dev, flush, rate, smi)
+
+    # 8b. the moe, encdec and vlm paths at full width
+    t0 = time.perf_counter()
+    for arch, layers in FAMILY_PATHS:
+        entries += serve_family(arch, layers, dev, flush, rate, smi)
+        torch.cuda.empty_cache()
+    print(f"moe, encdec and vlm paths: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # 9. the kernels line, the card, and the result
     for e in entries:

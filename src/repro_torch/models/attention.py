@@ -1,10 +1,11 @@
-"""GQA attention layer with KV cache, sliding window, qk-norm and M-RoPE
-(the port of ``repro.models.attention``; cross attention waits for the
-encoder-decoder family).  Cache layout: (B, S_max, KVH, D) per layer.
+"""GQA attention layer with KV cache, sliding window, qk-norm, M-RoPE
+and cross attention (the port of ``repro.models.attention``).  Cache
+layout: (B, S_max, KVH, D) per layer.
 
 ``cfg.attn_impl`` keeps the reference's names.  ``"pallas"`` selects the
-hand-written CUDA kernels in both places: flash attention (K2) at
-train/prefill and split-KV flash decode (K3) at decode.  The reference's
+hand-written CUDA kernels: flash attention (K2) at train/prefill and for
+cross attention (non-causal, at decode with one query row), split-KV
+flash decode (K3) for self attention at decode.  The reference's
 ``decode_self_attention`` sends ``"pallas"`` to its chunked scan instead;
 both compute the same function.
 """
@@ -111,3 +112,22 @@ def decode_self_attention(p: dict, x_t: torch.Tensor, cfg: ArchConfig, *,
                              cache_v.to(x.dtype), lengths, window=cfg.window,
                              impl=cfg.attn_impl, chunk=cfg.attn_chunk)
     return o.reshape(B, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+
+
+def cross_attention(p: dict, x: torch.Tensor, enc_kv, cfg: ArchConfig
+                    ) -> torch.Tensor:
+    """Decoder-to-encoder attention, not causal: x (B, S, d) attends over
+    ``enc_kv = (k, v)``, each (B, Se, KVH, D), computed once by
+    :func:`encode_cross_kv`.  With ``"pallas"`` this is K2 at prefill
+    and at decode (S = 1), as in the reference."""
+    B, S, _ = x.shape
+    q = _project_q(p, x, cfg)
+    k, v = enc_kv
+    o = attention(q, k, v, causal=False, impl=cfg.attn_impl,
+                  chunk=cfg.attn_chunk)
+    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+
+
+def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ArchConfig):
+    """The cross attention's (k, v) of the encoder's output."""
+    return _project_kv(p, enc_out, cfg)

@@ -57,3 +57,28 @@ def layernorm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+def _sinusoids(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(n,) float32 positions -> (n, d): sin at even columns, cos at odd."""
+    dim = torch.arange(0, d, 2, device=pos.device).float()[None, :]
+    angle = pos[:, None] / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                     device=pos.device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
+def sinusoidal_positions(seq: int, d: int, offset: int = 0, *,
+                         device=None) -> torch.Tensor:
+    """Sinusoidal embeddings of positions ``offset .. offset + seq - 1``,
+    (seq, d) float32."""
+    pos = torch.arange(offset, offset + seq, device=device).float()
+    return _sinusoids(pos, d)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings at the positions (B,) of a tensor -> (B, d)
+    float32."""
+    return _sinusoids(positions.float(), d)

@@ -3,10 +3,11 @@
 :func:`params_from_jax` takes the JAX package's parameter pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dictionary on ``device``: the stacked leading layer axis of
-``blocks`` becomes one dictionary per layer, every other entry (the
-hybrid family's ``shared_attn`` block included) is converted as it
-nests, and every weight keeps its ``(d_in, d_out)`` layout (the port
-computes ``x @ w`` as the reference does), so nothing is transposed.
+``blocks`` (and of encdec's ``enc_blocks``) becomes one dictionary per
+layer, every other entry (the hybrid family's ``shared_attn`` block and
+encdec's ``enc_norm`` included) is converted as it nests, and every
+weight keeps its ``(d_in, d_out)`` layout (the port computes ``x @ w``
+as the reference does), so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -46,6 +47,10 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> dict:
     ``device="cpu"`` is given)."""
     require_ported(cfg)
     dev = resolve_device(device)
-    out = {k: _convert(v, dev) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = _split_layers(tree["blocks"], cfg.n_layers, dev)
+    layers = {"blocks": cfg.n_layers}
+    if cfg.family == "encdec":
+        layers["enc_blocks"] = cfg.encdec.n_enc_layers
+    out = {k: _convert(v, dev) for k, v in tree.items() if k not in layers}
+    for k, n in layers.items():
+        out[k] = _split_layers(tree[k], n, dev)
     return out

@@ -137,7 +137,10 @@ def bound_ms(flops: float, nbytes: float, flop_rate: float,
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.float() - want.float()).norm() / want.float().norm())
+    """|got - want| / |want| in the L2 norm; |got - want| where ``want``
+    is zero (an attention over zeroed caches)."""
+    diff, norm = (got.float() - want.float()).norm(), want.float().norm()
+    return float(diff / norm if norm > 0 else diff)
 
 
 def device_share(fn, runs: int = 3):
@@ -168,22 +171,39 @@ def device_share(fn, runs: int = 3):
                               / runs) for e in top]
 
 
+def signature(args: tuple, kw: dict) -> tuple:
+    """A call's shape: its tensor arguments' shapes and dtypes, and its
+    other arguments as they are."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return tuple(a.shape), str(a.dtype)
+        return a
+    return (tuple(one(a) for a in args),
+            tuple(sorted((k, one(v)) for k, v in kw.items())))
+
+
 @contextlib.contextmanager
 def checked(module, name: str, plain, close):
     """While active, every call of ``module.<name>`` (a kernel wrapper)
     is followed by ``plain`` on the same arguments, and ``close(got,
     want)`` -- which raises past its tolerance -- gives the call's
     errors.  Yields a list that receives, per call, ``(errors, args,
-    kwargs)``; only the first call keeps its arguments.  The plain
-    version launches no kernel, so the wrappers' launch counts see only
-    the model's own calls."""
+    kwargs, sig)``, ``sig`` its :func:`signature`; only the first call
+    of each signature keeps its arguments (the others hold ``None``).
+    The plain version launches no kernel, so the wrappers' launch counts
+    see only the model's own calls."""
     real = getattr(module, name)
     calls: list = []
+    seen: set = set()
 
     def wrapper(*args, **kw):
         got = real(*args, **kw)
         errs = close(got, plain(*args, **kw))
-        calls.append((errs, args, kw) if not calls else (errs, None, None))
+        sig = signature(args, kw)
+        first = sig not in seen
+        seen.add(sig)
+        calls.append((errs, args, kw, sig) if first
+                     else (errs, None, None, sig))
         return got
 
     setattr(module, name, wrapper)

@@ -30,9 +30,10 @@ def _require_on(params: dict, dev: torch.device) -> None:
 
 def make_prefill_step(cfg: ArchConfig, *, device=None):
     """``prefill_step(params, batch) -> (last-position logits (B, V),
-    caches)``: the caches are ``(k, v)`` stacked over the layers (dense)
-    or over the shared block's groups (hybrid), and ``None`` for the ssm
-    family, as in the reference."""
+    caches)``: the caches are ``(k, v)`` stacked over the layers (dense,
+    vlm, moe) or over the shared block's groups (hybrid), ``((k, v),
+    (enc_k, enc_v))`` for encdec (``batch`` then holds ``enc_frames``),
+    and ``None`` for the ssm family, as in the reference."""
     require_ported(cfg)
     dev = resolve_device(device)
 
@@ -48,7 +49,8 @@ def make_prefill_step(cfg: ArchConfig, *, device=None):
 def make_decode_step(cfg: ArchConfig, *, device=None):
     """``serve_step(params, token, caches, lengths) -> logits (B, V)``;
     writes the new KV entries (and, for the ssm and hybrid families, the
-    conv windows and SSM states) into ``caches`` in place."""
+    conv windows and SSM states) into ``caches`` in place; encdec's
+    ``cross_k``/``cross_v`` are read, never written."""
     require_ported(cfg)
     dev = resolve_device(device)
 
@@ -66,7 +68,10 @@ def greedy_decode(params: dict, cfg: ArchConfig, prompt, steps: int,
     """Sequential greedy decode from ``prompt`` (B, S0): the prompt is fed
     one token at a time through the decode step, then ``steps`` tokens
     are generated; returns them as (B, steps) int32.  ``on_logits``, if
-    given, is called with each step's logits (B, V)."""
+    given, is called with each step's logits (B, V).  As in the
+    reference, encdec decodes over zeroed cross-attention caches (no
+    encoder run); a caller with encoder K/V drives
+    :func:`make_decode_step` over caches it fills."""
     B, S0 = prompt.shape
     if S0 < 1:
         raise ValueError(

@@ -15,8 +15,9 @@ holds against the JAX package.  This file imports no JAX, so its
   and combine logic on the CPU, every K2 shape through both its
   tensor-core (bf16) and its float32 route.
 * ``cuda``-marked cases (they skip without a card): each kernel against
-  its plain version on the card, and the LM slice with the kernels
-  against the plain path on the same weights.
+  its plain version on the card, and the LM slice and the moe, encdec
+  and vlm families with the kernels against the plain path on the same
+  weights.
 
 Tolerances: emulated float32 ``1e-5`` (the same float32 arithmetic in
 another order); on the card float32 ``1e-4``; bf16 ``2e-2`` (one bf16
@@ -38,7 +39,7 @@ import torch
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.kernels.flash_attention import kernel as k2
 from repro_torch.kernels.flash_decode import kernel as k3
-from repro_torch.models import init_params
+from repro_torch.models import decode_step, init_caches, init_params
 from repro_torch.serve import engine
 
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -289,6 +290,13 @@ EMU_ATTN_CASES = [
     (1, 65, 65, 2, 2, 128, False, 30, 0),
     (1, 77, 141, 2, 1, 16, True, None, 64),     # ragged Sq and Skv
     (1, 93, 150, 2, 2, 128, False, None, 57),   # ragged Sq and Skv
+    # the moe, encdec and vlm paths' shapes: one query row (decode cross
+    # attention) over a ragged Skv, ragged Sq < Skv cross attention at
+    # D = 64, GQA group 3 (granite) and group 8 at D = 128 (qwen2-vl)
+    (2, 1, 77, 2, 2, 64, False, None, 76),
+    (1, 45, 141, 2, 2, 64, False, None, 96),
+    (1, 70, 70, 6, 2, 64, True, None, 0),
+    (1, 65, 65, 8, 1, 128, True, None, 0),
 ]
 DTYPES = ["float32", "bfloat16"]
 
@@ -444,6 +452,8 @@ EMU_DECODE_CASES = [
     (2, 90, 6, 2, 80, None, 256, "bfloat16", "float32"),
     (2, 90, 8, 1, 64, 40, 32, "bfloat16", "bfloat16"),
     (2, 70, 12, 1, 128, None, 64, "float32", "bfloat16"),
+    (2, 90, 6, 2, 64, None, 32, "bfloat16", "bfloat16"),    # group 3
+    (2, 70, 8, 1, 128, None, 32, "bfloat16", "bfloat16"),   # group 8
 ]
 
 
@@ -626,3 +636,53 @@ def test_slice_on_card_kernels_match_plain_path(dtype):
     same = len(seen) if torch.equal(toks, ref_toks) else S0
     for g, w in zip(seen[:same], ref_seen[:same]):
         torch.testing.assert_close(g, w, **tol)
+
+
+FAMILIES = ["mixtral-8x7b", "granite-moe-3b-a800m", "whisper-small",
+            "qwen2-vl-72b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_on_card_kernels_match_plain_path(name, dtype):
+    """A family's smoke config on the card: prefill (K2 per attention:
+    whisper's encoder, decoder and cross attention) and four decode steps
+    (K3 per layer, and whisper's cross attention by K2 at one query row)
+    against the plain path (``"chunked"``) on the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU)")
+    cfg = smoke(ARCHS[name]).replace(attn_impl="pallas", dtype=dtype)
+    plain = cfg.replace(attn_impl="chunked")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S0)).astype(np.int32)).cuda()}
+    if cfg.encdec is not None:
+        batch["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encdec.enc_seq, cfg.d_model)).astype(np.float32)).cuda()
+    tol = TOL if dtype == "float32" else BF16_TOL
+    encdec = cfg.family == "encdec"
+    k2.launches = k3.launches = 0
+    got, caches = engine.make_prefill_step(cfg)(params, batch)
+    assert (k2.launches, k3.launches) == (
+        cfg.n_layers * (3 if encdec else 1), 0)
+    want, _ = engine.make_prefill_step(plain)(params, batch)
+    torch.testing.assert_close(got, want, **tol)
+    kernel = init_caches(cfg, B, MAX_SEQ)
+    ref = init_caches(plain, B, MAX_SEQ)
+    if encdec:  # the prefill's encoder K/V in the cross caches
+        for c in (kernel, ref):
+            c["cross_k"].copy_(caches[1][0])
+            c["cross_v"].copy_(caches[1][1])
+    lengths = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    k2.launches = k3.launches = 0
+    for t in range(4):
+        lengths = lengths + 1
+        tok = batch["tokens"][:, t]
+        g = decode_step(params, tok, kernel, lengths, cfg)
+        w = decode_step(params, tok, ref, lengths, plain)
+        torch.testing.assert_close(g, w, **tol)
+    assert (k2.launches, k3.launches) == (
+        4 * cfg.n_layers if encdec else 0, 4 * cfg.n_layers)

@@ -27,7 +27,7 @@ def test_every_module_imports_without_jax_or_repro():
                 "kernels.flash_attention.kernel",
                 "kernels.flash_decode.kernel", "kernels.ssd.kernel",
                 "kernels.ssd.ops", "kernels.ssd.ref", "configs.registry",
-                "models.lm", "models.ssm", "models.convert",
+                "models.lm", "models.ssm", "models.moe", "models.convert",
                 "serve.engine", "serve.bench", "serve.plans",
                 "serve.workers", "core.codegen_torch", "core.layoutapply",
                 "core.plancache", "core.runtime", "core.engine"):

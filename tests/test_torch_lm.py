@@ -335,9 +335,27 @@ def test_greedy_decode_validates_like_reference():
     assert out.shape == (2, 0) and out.dtype == torch.int32
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "whisper-small",
-                                  "qwen2-vl-72b"])
-def test_other_families_name_their_roadmap_item(name):
-    cfg = smoke(ARCHS[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_params(torch.Generator(), cfg, device="cpu")
+@pytest.mark.parametrize("entry", ["init_params", "init_caches", "forward",
+                                   "decode_step", "params_from_jax",
+                                   "make_prefill_step", "make_decode_step"])
+def test_unknown_family_raises_naming_it(entry):
+    """Every family of the reference is ported (tests/test_torch_families.py
+    holds moe, encdec and vlm against it); a family the port does not
+    know raises a ValueError naming it at each entry point."""
+    cfg = smoke(ARCHS["qwen3-0.6b"]).replace(family="retnet")
+    tokens = torch.zeros((1, 2), dtype=torch.int32)
+    calls = {
+        "init_params": lambda: init_params(torch.Generator(), cfg,
+                                           device="cpu"),
+        "init_caches": lambda: init_caches(cfg, 1, 8, device="cpu"),
+        "forward": lambda: forward({}, {"tokens": tokens}, cfg),
+        "decode_step": lambda: decode_step({}, tokens[:, 0], {},
+                                           tokens[:, 0], cfg),
+        "params_from_jax": lambda: params_from_jax({}, cfg, device="cpu"),
+        "make_prefill_step": lambda: engine.make_prefill_step(cfg,
+                                                              device="cpu"),
+        "make_decode_step": lambda: engine.make_decode_step(cfg,
+                                                            device="cpu"),
+    }
+    with pytest.raises(ValueError, match="unknown model family 'retnet'"):
+        calls[entry]()
