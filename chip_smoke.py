@@ -108,10 +108,35 @@ Phases, each of which raises on failure:
    and printed, every K2 and K3 call of them against its plain version;
    then timed, profiled, and K2 at every shape of the driven runs and K3
    alone beside their plain versions, bounds and SDPA;
-9. the ``kernels`` line: for each kernel and main path (K1's
-   ``compile_batched`` and PlanServe paths of phase 4b among them), its
-   launches in one driven run (counts set to zero just before it), its
-   error against the plain version, its times and its bound.
+9. the ``kernels`` line (printed after phase 10): for each kernel and
+   main path (K1's ``compile_batched`` and PlanServe paths of phase 4b
+   among them), its launches in one driven run (counts set to zero just
+   before it), its error against the plain version, its times and its
+   bound;
+10. training on the card (no kernel lies on the training path: the
+   reference trains on ``attn_impl="chunked"``): (a) a smoke-width
+   float32 train step of each of the six families on the card and on
+   the CPU from the same state, the loss within ``rtol=1e-5`` and every
+   parameter after a second step within ``atol=2e-5, rtol=1e-4``; (b)
+   qwen3-0.6b and (c) mamba2-130m at full width (float32 masters, bf16
+   compute, ``remat="full"``, B = 4 x 2048 synthetic tokens, 10 steps
+   of ``train_loop``'s step function): step time by CUDA events,
+   tokens/s, the profiler's device busy share, peak memory, each step's
+   loss, gradient norm, learning rate, clip scale and update size, the
+   losses (finite; every step's update at least 0.1 x its learning
+   rate; the first batch's loss after the last step below its loss
+   before the first; for qwen3-0.6b the last step's loss below the
+   first's; two microbatches' first loss within 2e-3 of one's) and the
+   model FLOPs a step against 989 TFLOP/s; before training, a gradient
+   probe in float32 (the norm at 2, 8 and all layers, and its change
+   under a 1e-7 relative perturbation of the weights); (d) exact resume at qwen3-0.6b's width cut to 2 layers (5
+   straight steps against 3, a crash and 2 resumed: every leaf within
+   1e-6); (e) the trained qwen3-0.6b masters, as leaves that require
+   grad, cast to bf16 and served with ``attn_impl="pallas"``: a prefill
+   of 4 x 2048 through K2 (28 launches) within the bf16 gate of
+   ``"chunked"``, 8 greedy decode steps through K3 (28 a step), every
+   K2 and K3 call held against its plain version; (f) a
+   train step through the forward-only kernels raises.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is the
 device's alone: the host enqueues the call while the device spins
@@ -125,7 +150,9 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import pathlib
+import statistics
 import sys
 import time
 
@@ -251,6 +278,48 @@ SERVE_REQUESTS, SERVE_MAX_BATCH = 48, 8
 SERVE_2D, SERVE_COSMO, SERVE_PLANES = (1000, 2048), (480, 512), 16
 #: Requests each pool of spawned workers answers.
 WORKER_REQUESTS = 4
+#: Phase 10, training on the card.  (a) every family at smoke width in
+#: float32, card against CPU: the loss at the reference's own float32
+#: gate and every parameter after a step at the tolerance of its
+#: microbatch test (tests/test_infra.py).
+TRAIN_FAMILIES = (("dense", "qwen3-0.6b"), ("moe", "granite-moe-3b-a800m"),
+                  ("ssm", "mamba2-130m"), ("hybrid", "zamba2-2.7b"),
+                  ("encdec", "whisper-small"), ("vlm", "qwen2-vl-72b"))
+TRAIN_FAMILY_B, TRAIN_FAMILY_S = 4, 64
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_STEP_TOL = dict(atol=2e-5, rtol=1e-4)
+#: (b, c) qwen3-0.6b and mamba2-130m at full width: steps of B x S
+#: synthetic tokens; two microbatches' first loss within TRAIN_MB_RTOL
+#: of one's (bf16 compute, two summation orders).
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10
+TRAIN_MB_RTOL = 2e-3
+#: Every step must move the parameters: the root mean square of its
+#: change over all of them at least UPDATE_FLOOR times the step's
+#: learning rate.  AdamW moves a parameter by about lr (by lr * sign(g)
+#: at the first step) wherever the clipped gradient lies well above
+#: eps = 1e-8, and by far less where it does not.
+UPDATE_FLOOR = 0.1
+#: The architectures whose last step's loss must lie below the first's
+#: (every one: the first batch's loss after the last step below its
+#: loss before the first).  Not mamba2-130m: at this initialisation its
+#: gradient explodes with depth, in the reference too
+#: (tests/test_torch_train.py::
+#: test_ssm_gradient_norm_grows_with_depth_as_in_reference, and the
+#: gradient probe's line), and its per-step losses stay within the
+#: batches' spread over 10 steps.
+LAST_BELOW_FIRST = ("qwen3-0.6b",)
+#: The gradient probe before training: float32, the first sequence of
+#: the first batch, the model cut to each of PROBE_DEPTHS layers (and
+#: whole); the gradient's norm and its relative change when every
+#: weight is scaled by 1 + PROBE_EPS * N(0, 1).
+PROBE_DEPTHS, PROBE_EPS = (2, 8), 1e-7
+#: The model-FLOPs share's peak: dense bf16 on the H100 (989 TFLOP/s).
+BF16_PEAK = 989e12
+#: (d) exact resume at qwen3-0.6b's width cut to RESUME_LAYERS layers
+#: (2.2 GB a checkpoint), B = TRAIN_B sequences of RESUME_S tokens.
+RESUME_LAYERS, RESUME_S = 2, 512
+#: (e) greedy decode steps of the trained model through K3.
+TRAIN_DECODE_STEPS = 8
 
 
 def close(got, want, tag: str, atol: float, rtol: float) -> float:
@@ -1910,6 +1979,343 @@ def serve_family(arch: str, layers: int, dev, flush, rate: float,
     return entries
 
 
+def tree_to(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def train_batch(cfg, B: int, S: int, step: int, dev, gen=None) -> dict:
+    """``SyntheticTokens``' batch ``step`` on ``dev`` (and, for encdec,
+    stub frame embeddings from ``gen`` on the CPU)."""
+    from repro_torch.data.pipeline import DataCfg, SyntheticTokens
+
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticTokens(DataCfg(cfg.vocab, S, B)).batch(step).items()}
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.randn(
+            (B, cfg.encdec.enc_seq, cfg.d_model), generator=gen)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def train_card_vs_cpu(dev) -> None:
+    """10a. A smoke-width float32 train step of every family on the card
+    and on the CPU from the same state, gated at ``TRAIN_STEP_TOL``."""
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.tree import tree_leaves
+
+    for family, arch in TRAIN_FAMILIES:
+        cfg = smoke(ARCHS[arch]).replace(attn_impl="chunked", remat="full")
+        gen = torch.Generator().manual_seed(0)
+        step = make_step(cfg, steps=TRAIN_STEPS)
+        params = init_params(gen, cfg, device="cpu")
+        opt = init_opt_state(params)
+        b1 = train_batch(cfg, TRAIN_FAMILY_B, TRAIN_FAMILY_S, 0, "cpu", gen)
+        b2 = train_batch(cfg, TRAIN_FAMILY_B, TRAIN_FAMILY_S, 1, "cpu", gen)
+        # step 1 on both; step 2 from the CPU's state after step 1 (a
+        # first AdamW step moves every parameter by about lr, whatever
+        # its gradient: the second also tests the gradients' size)
+        p1, o1, m1 = step(params, opt, b1)
+        _, _, c1 = step(tree_to(params, dev), tree_to(opt, dev),
+                        tree_to(b1, dev))
+        p2, _, m2 = step(p1, o1, b2)
+        q2, _, c2 = step(tree_to(p1, dev), tree_to(o1, dev),
+                         tree_to(b2, dev))
+        for want, got in ((m1, c1), (m2, c2)):
+            w, g = float(want["loss"]), float(got["loss"])
+            if not abs(g - w) <= TRAIN_LOSS_RTOL * abs(w):
+                raise AssertionError(f"train {arch}: card loss {g} vs CPU "
+                                     f"{w} past rtol {TRAIN_LOSS_RTOL}")
+        worst = max(close(got.cpu(), want, f"train {arch} param {i}",
+                          **TRAIN_STEP_TOL)
+                    for i, (want, got) in enumerate(zip(tree_leaves(p2),
+                                                        tree_leaves(q2))))
+        print(f"train card vs CPU {family:6s} {arch:22s} smoke float32, "
+              f"B={TRAIN_FAMILY_B} S={TRAIN_FAMILY_S}: loss (CPU / card) "
+              f"{float(m1['loss']):.7f} / {float(c1['loss']):.7f}, step 2 "
+              f"{float(m2['loss']):.7f} / {float(c2['loss']):.7f}; "
+              f"grad_norm step 2 {float(m2['grad_norm']):.6e} / "
+              f"{float(c2['grad_norm']):.6e}; params after step 2 max abs "
+              f"err {worst:.3e}", flush=True)
+
+
+def gradient_probe(cfg, params: dict, batch: dict, dev) -> str:
+    """The gradient's norm at each of ``PROBE_DEPTHS`` layers and at
+    full depth, and its relative change under a ``PROBE_EPS``
+    perturbation of every weight (float32, one sequence)."""
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import tree_map
+
+    cfg = cfg.replace(dtype="float32")
+    one = {k: v[:1] for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for depth in sorted({min(d, cfg.n_layers) for d in PROBE_DEPTHS}
+                        | {cfg.n_layers}):
+        cut = dict(params, blocks=params["blocks"][:depth])
+        ccfg = cfg.replace(n_layers=depth)
+        g0 = value_and_grad(cut, one, ccfg)[1]
+        moved = tree_map(lambda p: p * (1 + PROBE_EPS * torch.randn(
+            p.shape, generator=gen, device=p.device)), cut)
+        g1 = value_and_grad(moved, one, ccfg)[1]
+        norm = float(global_norm(g0))
+        change = float(global_norm(tree_map(torch.sub, g1, g0))) / norm
+        if not (math.isfinite(norm) and math.isfinite(change)):
+            raise AssertionError(f"gradient probe {cfg.name} at {depth} "
+                                 f"layers: norm {norm}, change {change}")
+        out.append(f"{depth} layers: grad_norm {norm:.6g}, change "
+                   f"{change:.3e}")
+        del g0, g1, moved
+    torch.cuda.empty_cache()
+    return "; ".join(out)
+
+
+def train_full_width(arch: str, dev, smi: str):
+    """10b/10c. ``TRAIN_STEPS`` steps of ``train_loop``'s step function
+    at full width: float32 masters, bf16 compute, ``remat="full"``,
+    ``attn_impl="chunked"``; the first step's loss also with two
+    microbatches; each step's loss, gradient norm, learning rate, clip
+    scale and update size printed.  Gates: the losses finite, every
+    step's update at least ``UPDATE_FLOOR`` times its learning rate, the
+    first batch's loss after the last step below its loss before the
+    first, and for ``LAST_BELOW_FIRST`` the last step's loss below the
+    first's.  Returns the masters after the last step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamWCfg, init_opt_state
+    from repro_torch.train.step import loss_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS[arch].replace(remat="full", attn_impl="chunked")
+    B, S = TRAIN_B, TRAIN_S
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    opt = init_opt_state(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    step = make_step(cfg, steps=TRAIN_STEPS)
+    batches = [train_batch(cfg, B, S, s, dev) for s in range(TRAIN_STEPS)]
+    probe = gradient_probe(cfg, params, batches[0], dev)
+    print(f"train {arch} gradient probe before training (float32, 1 x "
+          f"{S} tokens, weights scaled by 1 + {PROBE_EPS:g} N(0, 1)): "
+          f"{probe}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        before = float(loss_fn(params, batches[0], cfg)[0])
+    _, _, mb = make_step(cfg, steps=TRAIN_STEPS, microbatches=2)(
+        params, opt, batches[0])
+    mb_loss = float(mb["loss"])
+    clip = AdamWCfg().clip_norm
+    losses, ms, lines, updates = [], [], [], []
+    for s in range(TRAIN_STEPS):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        old = params
+        t0.record()
+        params, opt, metrics = step(params, opt, batches[s])
+        t1.record()
+        losses.append(float(metrics["loss"]))  # synchronises
+        ms.append(t0.elapsed_time(t1))
+        with torch.no_grad():
+            rms = float(torch.sqrt(sum(
+                torch.sum(torch.square(a - b)) for a, b in
+                zip(tree_leaves(params), tree_leaves(old))) / n_params))
+        lr, gnorm = float(metrics["lr"]), float(metrics["grad_norm"])
+        updates.append(rms / lr)
+        lines.append(f"  step {s}: loss {losses[-1]:.6f} grad_norm "
+                     f"{gnorm:.6g} lr {lr:.4e} clip scale "
+                     f"{min(1.0, clip / gnorm):.4e} update rms {rms:.4e} "
+                     f"= {rms / lr:.3f} x lr")
+    del old
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        after = float(loss_fn(params, batches[0], cfg)[0])
+    print(f"train {arch} steps:\n" + "\n".join(lines), flush=True)
+    if not all(math.isfinite(v) for v in losses + [before, after]):
+        raise AssertionError(f"train {arch}: losses {losses}, the first "
+                             f"batch's before {before}, after {after}")
+    if min(updates) < UPDATE_FLOOR:
+        raise AssertionError(f"train {arch}: a step moved the parameters "
+                             f"by less than {UPDATE_FLOOR} x lr: "
+                             f"{updates}")
+    if not after < before:
+        raise AssertionError(f"train {arch}: the first batch's loss "
+                             f"{before} before the first step, {after} "
+                             f"after the last")
+    if arch in LAST_BELOW_FIRST and not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch}: last loss {losses[-1]} not "
+                             f"below the first {losses[0]}")
+    if not abs(mb_loss - losses[0]) <= TRAIN_MB_RTOL * abs(losses[0]):
+        raise AssertionError(f"train {arch}: first loss {losses[0]} with "
+                             f"one microbatch, {mb_loss} with two")
+    step_ms = statistics.median(ms)
+    tokens = B * S
+    flops = 6 * n_params * tokens
+    if cfg.family != "ssm":
+        flops += 12 * B * S * S * cfg.n_heads * cfg.hd * cfg.n_layers
+    print(f"train {arch} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters): "
+          f"float32 masters, bf16 compute, remat=full, chunked, B={B} "
+          f"S={S}, {TRAIN_STEPS} steps: step_ms={step_ms:.1f} (steps "
+          + ", ".join(f"{t:.1f}" for t in ms)
+          + f")  tokens/s={tokens / step_ms * 1e3:.0f}  peak memory "
+          f"{peak / 2**30:.2f} GiB  loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}  first batch before the first step "
+          f"{before:.6f}, after the last {after:.6f}  two microbatches: "
+          f"first loss {mb_loss:.6f}  model "
+          f"{flops / 1e12:.2f} TFLOP a step = "
+          f"{100 * flops / (step_ms * 1e-3) / BF16_PEAK:.1f} % of 989 "
+          f"TFLOP/s  card: {smi}", flush=True)
+    profile(f"train {arch}", (("step", lambda: step(params, opt,
+                                                    batches[0]), 1,
+                               step_ms),))
+    return params
+
+
+def train_resume(dev) -> None:
+    """10d. Exact resume on the card: qwen3-0.6b's full width cut to
+    ``RESUME_LAYERS`` layers, 5 straight steps against 3 steps, a crash
+    and 2 resumed steps."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import train_loop
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS[LM_ARCH].replace(n_layers=RESUME_LAYERS, remat="full",
+                                 attn_impl="chunked")
+    root = ROOT / "build" / "repro_torch" / "phase10_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=5, batch=TRAIN_B, seq=RESUME_S, device=dev, log_every=5)
+    try:
+        t0 = time.perf_counter()
+        pa, oa, la = train_loop(cfg, ckpt_dir=str(root / "a"),
+                                ckpt_every=100, **kw)
+        train_loop(cfg, ckpt_dir=str(root / "b"), ckpt_every=3,
+                   stop_after=3, **kw)
+        pb, ob, lb = train_loop(cfg, ckpt_dir=str(root / "b"), resume=True,
+                                ckpt_every=100, **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    leaves = list(zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))))
+    worst = max(close(b, a, f"resume leaf {i}", 1e-6, 1e-6)
+                for i, (a, b) in enumerate(leaves))
+    same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    print(f"train resume {LM_ARCH} full width cut to {RESUME_LAYERS} "
+          f"layers, B={TRAIN_B} S={RESUME_S}: 5 straight steps vs 3 + "
+          f"crash + 2 resumed: losses {la[3:]} vs {lb}, {len(leaves)} "
+          f"leaves (params, m, v, step) max abs err {worst:.3e}, {same} "
+          f"bit for bit; three runs with checkpoints in {wall:.1f} s",
+          flush=True)
+
+
+def serve_trained(masters: dict, dev, smi: str) -> None:
+    """10e. The trained qwen3-0.6b masters (leaves that require grad, as
+    an optimizer's are) cast to bf16 and served through K2 and K3, every
+    kernel call held against its plain version on its own inputs."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm import cast
+    from repro_torch.serve import greedy_decode, make_prefill_step
+    from repro_torch.tree import tree_map
+
+    cfg = ARCHS[LM_ARCH].replace(attn_impl="pallas")
+    masters = tree_map(lambda p: p.requires_grad_(), masters)
+    params = cast(masters, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=dev)
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_launch_counts()
+        logits, caches = make_prefill_step(cfg, device=dev)(
+            params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        k2_call = worst(calls["K2"])
+        del calls
+    if counts != {"K2": cfg.n_layers, "K3": 0, "K4": 0}:
+        raise AssertionError(f"trained prefill launches {counts}")
+    del caches
+    want, _ = make_prefill_step(cfg.replace(attn_impl="chunked"),
+                                device=dev)(params, {"tokens": tokens})
+    check = lm_check(logits, want, "trained prefill vs chunked",
+                     **LM_TOL["bfloat16"])
+    prompt = tokens[:, :DECODE_PROMPT]
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_launch_counts()
+        out = greedy_decode(params, cfg, prompt, TRAIN_DECODE_STEPS,
+                            MAX_SEQ, cache_dtype=torch.bfloat16,
+                            device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        k3_call = worst(calls["K3"])
+        del calls
+    n_steps = DECODE_PROMPT + TRAIN_DECODE_STEPS - 1
+    if counts != {"K2": 0, "K3": cfg.n_layers * n_steps, "K4": 0}:
+        raise AssertionError(f"trained decode launches {counts}")
+    if out.shape != (PREFILL_B, TRAIN_DECODE_STEPS) or \
+            not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"trained decode: tokens {tuple(out.shape)}")
+    print(f"train -> serve {LM_ARCH}: trained masters in bf16 with "
+          f"attn_impl=pallas: prefill B={PREFILL_B} S={PREFILL_S} K2 "
+          f"launches={cfg.n_layers}, each against its plain version: max "
+          f"abs err {k2_call[0]:.3e}, rel l2 {k2_call[1]:.3e}; logits vs "
+          f"chunked {check} (largest |logit| {float(want.abs().max()):.2f});"
+          f" greedy decode {TRAIN_DECODE_STEPS} steps from {DECODE_PROMPT}"
+          f"-token prompts: K3 launches={counts['K3']} ({cfg.n_layers} a "
+          f"step), each against its plain version: max abs err "
+          f"{k3_call[0]:.3e}, rel l2 {k3_call[1]:.3e}  card: {smi}",
+          flush=True)
+
+
+def train_guard(dev) -> None:
+    """10f. A train step through the forward-only kernels raises."""
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import init_opt_state
+
+    cfg = smoke(ARCHS[LM_ARCH]).replace(attn_impl="pallas")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    batch = train_batch(cfg, 2, 64, 0, dev)
+    zero_launch_counts()
+    try:
+        make_step(cfg, steps=1)(params, init_opt_state(params), batch)
+    except RuntimeError as e:
+        if 'attn_impl="chunked"' not in str(e):
+            raise
+        message = str(e)
+    else:
+        raise AssertionError("a train step with attn_impl='pallas' ran")
+    if launch_counts()["K2"]:
+        raise AssertionError("the refused train step launched K2")
+    print(f"train guard: a train step with attn_impl=pallas on the card "
+          f"raises RuntimeError: {message}", flush=True)
+
+
+def train_phase(dev, smi: str) -> None:
+    """Phase 10: training on the card."""
+    t0 = time.perf_counter()
+    train_card_vs_cpu(dev)
+    masters = train_full_width(LM_ARCH, dev, smi)
+    torch.cuda.empty_cache()
+    train_full_width("mamba2-130m", dev, smi)
+    torch.cuda.empty_cache()
+    train_resume(dev)
+    serve_trained(masters, dev, smi)
+    del masters
+    torch.cuda.empty_cache()
+    train_guard(dev)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2022,6 +2428,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"moe, encdec and vlm paths: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # 10. training on the card, then the trained weights through K2, K3
+    train_phase(dev, smi)
 
     # 9. the kernels line, the card, and the result
     for e in entries:

@@ -250,15 +250,18 @@ def _repoint_spec(spec: dict) -> dict:
     return spec
 
 
-def from_reference_dict(d: dict) -> "KernelPlan":
-    """The validated port :class:`KernelPlan` for a dict written by the
-    JAX package's ``KernelPlan.to_dict()`` (or a golden JSON file):
-    every ``ref`` fn spec naming ``repro.core.programs`` is re-pointed
-    at ``repro_torch.core.programs`` before the fn tables re-link."""
+def from_reference_dict(d: dict, *, validate: bool = True) -> "KernelPlan":
+    """The port :class:`KernelPlan` (validated unless ``validate`` is
+    false) for a dict written by the JAX package's
+    ``KernelPlan.to_dict()`` (or a golden JSON file): every ``ref`` fn
+    spec naming ``repro.core.programs`` is re-pointed at
+    ``repro_torch.core.programs`` before the fn tables re-link.  A dict
+    of the port's own passes through unchanged."""
     d = dict(d)
     d["calls"] = [{**c, "fns": [_repoint_spec(f) for f in c["fns"]]}
                   for c in d["calls"]]
-    return KernelPlan.from_dict(d).validate()
+    kplan = KernelPlan.from_dict(d)
+    return kplan.validate() if validate else kplan
 
 
 def _jsonable(obj):

@@ -32,6 +32,7 @@ import pathlib
 import torch
 
 from .. import build
+from .._grad import refuse_grad
 
 NEG_INF = -1e30
 #: Head dims the kernel is built for.
@@ -174,6 +175,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     float32 or bf16; returns (B, Sq, H, D) in q's dtype.  ``q_offset`` is
     the position of q[0] on the kv axis (default ``Skv - Sq``)."""
     global launches
+    refuse_grad("flash attention (K2)", q, k, v)
     _check(q, k, v, window)
     scale = scale if scale is not None else q.shape[3] ** -0.5
     q_off = q_offset if q_offset is not None else k.shape[1] - q.shape[1]

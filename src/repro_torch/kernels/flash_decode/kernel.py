@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from .. import build
+from .._grad import refuse_grad
 from ..flash_attention.kernel import HEAD_DIMS
 
 NEG_INF = -1e30
@@ -237,6 +238,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, H, D) one token per sequence; caches (B, S, KVH, D);
     lengths (B,) valid cache lengths, the new token's included."""
     global launches
+    refuse_grad("flash decode (K3)", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lengths, window)
     scale = scale if scale is not None else q.shape[2] ** -0.5
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, lengths)):

@@ -31,6 +31,7 @@ import pathlib
 import torch
 
 from .. import build
+from .._grad import refuse_grad
 from .ops import ssd_scan
 
 #: Largest head dim and state dim the kernel takes.
@@ -203,6 +204,7 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x (B, S, H, P), dt (B, S, H) post-softplus, A (H,) negative,
     Bm/Cm (B, S, N), D (H,) -> y (B, S, H, P) in x's dtype."""
     global launches
+    refuse_grad("the ssd kernel (K4)", x, dt, A, Bm, Cm, D)
     _check(x, dt, A, Bm, Cm, D)
     if all(t.device.type == "cpu" for t in (x, dt, A, Bm, Cm, D)):
         return ssd_scan(x, dt, A, Bm, Cm, D,

@@ -37,9 +37,12 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128) -> torch.Tensor:
         xi, dti, bi, ci = xc[:, c], dtc[:, c], bc[:, c], cc[:, c]
         cs = torch.einsum("ts,bsh->bth", tril, dti)  # inclusive cumsum
         din = torch.exp(A[None, None, :] * cs)  # decay from chunk entry to t
-        # pairwise decay exp(A (cs_t - cs_tau)), selected for tau <= t
+        # pairwise decay exp(A (cs_t - cs_tau)) for tau <= t, 0 above the
+        # diagonal; masked before the exp, whose argument overflows there
+        # (an inf times the zero cotangent of a where after it would make
+        # every gradient NaN, as the reference's scan does)
         seg = cs[:, :, None, :] - cs[:, None, :, :]  # (B, L, L, H)
-        decay = torch.where(mask, torch.exp(A * seg), 0.0)
+        decay = torch.exp(torch.where(mask, A * seg, -torch.inf))
         # intra-chunk: M[t, tau] = (C_t . B_tau) decay dt_tau
         cb = torch.einsum("btn,bsn->bts", ci, bi)
         M = cb[..., None] * decay * dti[:, None, :, :]

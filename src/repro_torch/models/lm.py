@@ -14,6 +14,13 @@ the reference's ``_cast`` does (the final norms' parameters stay
 float32, as there); parameters already in that dtype are used as they
 are.
 
+Under autograd (``forward(..., mode="train")`` with grad mode on) each
+block (a hybrid group, as the reference's scan body) is rematerialized
+by ``cfg.remat``: ``"full"`` recomputes it in the backward pass
+(``torch.utils.checkpoint``), ``"dots"`` keeps the matrix products'
+outputs and recomputes the rest (the reference's ``checkpoint_dots``),
+``"none"`` keeps everything; without grad (serving) nothing is wrapped.
+
 Entry points:
   init_params(gen, cfg, device=)           -> parameter dictionary
   forward(params, batch, cfg, mode=)       -> {'logits', 'aux'[, 'caches']}
@@ -23,9 +30,12 @@ Entry points:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..core.interpreters import resolve_device
+from ..tree import tree_map
 from .attention import (attn_init, cross_attention, decode_self_attention,
                         encode_cross_kv, self_attention)
 from .common import (DTYPES, dense_init, embed_init, layernorm,
@@ -112,11 +122,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *,
 
 def cast(tree, dtype: torch.dtype):
     """``tree`` with every float32 tensor rounded to ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: cast(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cast(v, dtype) for v in tree]
-    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+    return tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
+                    else t, tree)
 
 
 def _head(params: dict) -> torch.Tensor:
@@ -128,6 +135,36 @@ def _groups(cfg: ArchConfig, n: int) -> list[range]:
     """The hybrid family's groups of ``attn_every`` layers, in order."""
     every = cfg.hybrid.attn_every
     return [range(g * every, (g + 1) * every) for g in range(n // every)]
+
+
+#: The matrix products whose outputs ``remat="dots"`` keeps (``einsum``
+#: and ``@`` reach these).
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` rematerialized as ``cfg.remat`` says, when autograd
+    records (the port of the reference's ``_remat``)."""
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat must be 'full', 'dots' or 'none', got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def _dense_block(bp: dict, x: torch.Tensor, cfg: ArchConfig, positions):
@@ -182,8 +219,10 @@ def _encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     x = x + sinusoidal_positions(Se, cfg.d_model,
                                  device=x.device).to(dt)[None]
     positions = torch.arange(Se, device=x.device)[None].expand(B, Se)
+    block = _remat(lambda bp, x: _enc_block(cast(bp, dt), x, cfg, positions),
+                   cfg)
     for bp in params["enc_blocks"]:
-        x = _enc_block(cast(bp, dt), x, cfg, positions)
+        x = block(bp, x)
     return layernorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -226,36 +265,54 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         if cfg.mrope_sections is not None:
             positions = positions[None].expand(3, B, S)
+    # only a prefill keeps the per-layer K/V (in training they would stay
+    # alive, remat or not)
+    collect = mode == "prefill"
     kvs, enc_kvs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if fam in ("dense", "vlm"):
+        block = _remat(lambda bp, x: _dense_block(cast(bp, dt), x, cfg,
+                                                  positions), cfg)
         for bp in params["blocks"]:
-            x, kv = _dense_block(cast(bp, dt), x, cfg, positions)
-            kvs.append(kv)
+            x, kv = block(bp, x)
+            if collect:
+                kvs.append(kv)
     elif fam == "moe":
+        block = _remat(lambda bp, x: _moe_block(cast(bp, dt), x, cfg,
+                                                positions), cfg)
         for bp in params["blocks"]:
-            x, kv, a = _moe_block(cast(bp, dt), x, cfg, positions)
-            kvs.append(kv)
+            x, kv, a = block(bp, x)
+            if collect:
+                kvs.append(kv)
             aux = aux + a
     elif fam == "ssm":
+        block = _remat(lambda bp, x: _ssm_block(cast(bp, dt), x, cfg), cfg)
         for bp in params["blocks"]:
-            x = _ssm_block(cast(bp, dt), x, cfg)
+            x = block(bp, x)
     elif fam == "hybrid":
         shared = cast(params["shared_attn"], dt)
+
+        def group_body(bps, shared, x):
+            for bp in bps:
+                x = _ssm_block(cast(bp, dt), x, cfg)
+            return _dense_block(shared, x, cfg, positions)
+        group_body = _remat(group_body, cfg)
         for group in _groups(cfg, len(params["blocks"])):
-            for layer in group:
-                x = _ssm_block(cast(params["blocks"][layer], dt), x, cfg)
-            x, kv = _dense_block(shared, x, cfg, positions)
-            kvs.append(kv)
+            x, kv = group_body([params["blocks"][i] for i in group], shared,
+                               x)
+            if collect:
+                kvs.append(kv)
     else:  # encdec
         enc_out = _encode(params, batch["enc_frames"], cfg, dt)
         x = x + sinusoidal_positions(S, cfg.d_model,
                                      device=x.device).to(dt)[None]
+        block = _remat(lambda bp, x, enc_out: _dec_block(
+            cast(bp, dt), x, enc_out, cfg, positions), cfg)
         for bp in params["blocks"]:
-            x, kv, enc_kv = _dec_block(cast(bp, dt), x, enc_out, cfg,
-                                       positions)
-            kvs.append(kv)
-            enc_kvs.append(enc_kv)
+            x, kv, enc_kv = block(bp, x, enc_out)
+            if collect:
+                kvs.append(kv)
+                enc_kvs.append(enc_kv)
     if last_only:
         x = x[:, -1:]
     x = _final_norm(params, x, cfg)

@@ -9,7 +9,10 @@ the caller passes.
 
 The entry points run on ``device``: the current CUDA device unless the
 caller passes ``device="cpu"``; without CUDA and without that argument
-they raise.  The parameters must already be on that device.
+they raise.  The parameters must already be on that device.  They run
+under ``torch.no_grad()`` (not ``inference_mode``: decode writes the
+caller's caches in place), so parameters that require grad, such as a
+trainer's masters, serve through the forward-only kernels.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ def make_prefill_step(cfg: ArchConfig, *, device=None):
     require_ported(cfg)
     dev = resolve_device(device)
 
+    @torch.no_grad()
     def prefill_step(params, batch):
         _require_on(params, dev)
         batch = {k: v.to(dev) for k, v in batch.items()}
@@ -54,6 +58,7 @@ def make_decode_step(cfg: ArchConfig, *, device=None):
     require_ported(cfg)
     dev = resolve_device(device)
 
+    @torch.no_grad()
     def serve_step(params, token, caches, lengths):
         _require_on(params, dev)
         return _decode_step(params, token.to(dev), caches, lengths.to(dev),
@@ -62,6 +67,7 @@ def make_decode_step(cfg: ArchConfig, *, device=None):
     return serve_step
 
 
+@torch.no_grad()
 def greedy_decode(params: dict, cfg: ArchConfig, prompt, steps: int,
                   max_seq: int, *, cache_dtype: torch.dtype = torch.float32,
                   device=None, on_logits=None) -> torch.Tensor:

@@ -686,3 +686,48 @@ def test_family_on_card_kernels_match_plain_path(name, dtype):
         torch.testing.assert_close(g, w, **tol)
     assert (k2.launches, k3.launches) == (
         4 * cfg.n_layers if encdec else 0, 4 * cfg.n_layers)
+
+
+@pytest.mark.cuda
+def test_card_routes_have_no_autograd_link_so_wrappers_refuse_grad():
+    """The fault the guard repairs: the launch routes of K2, K3 and K4
+    write outputs with no autograd link, so a loss through them dropped
+    the inputs' gradients silently (the plain versions, which the CPU
+    route runs, give them); every wrapper now raises under grad on the
+    card as on the CPU."""
+    _need_card()
+    from repro_torch.kernels.ssd import kernel as k4
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 64, 2, 64), generator=gen, device="cuda",
+                    requires_grad=True)
+    kw = dict(causal=True, window=None, q_offset=0, scale=0.125)
+    o, run = k2.prepare(q, q, q, **kw)
+    run()
+    assert not o.requires_grad
+    (g,) = torch.autograd.grad(
+        k2.flash_attention_plain(q, q, q, **kw).square().sum(), q)
+    assert float(g.abs().max()) > 0
+    lengths = torch.full((1,), 40, dtype=torch.int32, device="cuda")
+    q1 = torch.randn((1, 2, 64), generator=gen, device="cuda",
+                     requires_grad=True)
+    cache = torch.randn((1, 64, 2, 64), generator=gen, device="cuda")
+    o3, run3 = k3.prepare(q1, cache, cache, lengths, window=None,
+                          scale=0.125)
+    run3()
+    assert not o3.requires_grad
+    x = torch.randn((1, 64, 2, 64), generator=gen, device="cuda",
+                    requires_grad=True)
+    dt = torch.full((1, 64, 2), 0.1, device="cuda")
+    bm = torch.randn((1, 64, 16), generator=gen, device="cuda")
+    A, D = -torch.ones(2, device="cuda"), torch.ones(2, device="cuda")
+    y, run4 = k4.prepare(x, dt, A, bm, bm, D, chunk=64)
+    run4()
+    assert not y.requires_grad
+    for call in (lambda: k2.flash_attention_fwd(q, q, q, causal=True),
+                 lambda: k3.flash_decode(q1, cache, cache, lengths),
+                 lambda: k4.ssd_kernel(x, dt, A, bm, bm, D, chunk=64)):
+        with pytest.raises(RuntimeError, match='attn_impl="chunked"'):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call()).all()

@@ -30,7 +30,12 @@ def test_every_module_imports_without_jax_or_repro():
                 "models.lm", "models.ssm", "models.moe", "models.convert",
                 "serve.engine", "serve.bench", "serve.plans",
                 "serve.workers", "core.codegen_torch", "core.layoutapply",
-                "core.plancache", "core.runtime", "core.engine"):
+                "core.plancache", "core.runtime", "core.engine",
+                "kernels._grad", "tree", "data.pipeline", "optim.adamw",
+                "train.step", "ckpt.checkpoint", "ft.watchdog",
+                "launch.train", "scripts.warm_cache", "scripts.plan_lint",
+                "examples.quickstart", "examples.cosmo_fusion",
+                "examples.serve_lm", "examples.train_lm"):
         assert f"repro_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
