@@ -136,7 +136,23 @@ Phases, each of which raises on failure:
    of 4 x 2048 through K2 (28 launches) within the bf16 gate of
    ``"chunked"``, 8 greedy decode steps through K3 (28 a step), every
    K2 and K3 call held against its plain version; (f) a
-   train step through the forward-only kernels raises.
+   train step through the forward-only kernels raises;
+11. the mesh on the card (no kernel lies on it), over a (1, 1)
+   ``make_host_mesh`` of a one-rank NCCL group on 127.0.0.1: (a) phase
+   10b's first step (qwen3-0.6b, full width and depth, the same masters
+   and batch) with parameters, AdamW moments and batch laid out as
+   DTensors by ``param_specs`` under ``use_mesh``, its loss within
+   ``rtol=1e-5`` and every parameter within ``atol=3e-5, rtol=1e-3`` of
+   the unsharded step's, both timed (median of 5); (b) qwen3-0.6b's
+   prefill (4 x 2048) and one decode step through ``specs.build_cell``'s
+   cells on the mesh, bf16, within the bf16 logit gate of the unsharded
+   ``make_prefill_step`` and ``make_decode_step``, the decode's new K/V
+   rows bit for bit (``torch.equal``: one rank runs the unsharded ops);
+   (c) the unsharded step counted by ``FlopCounterMode`` and the dry
+   run's byte counter, through ``Roofline`` with the H100's
+   constants, beside its measured time; (d) the dry run's gate cell
+   (mamba2-130m x decode_32k on the 16 x 16 mesh of 256 fake ranks), a
+   host-only subprocess that must print ``dry-run complete: 1 ok``.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is the
 device's alone: the host enqueues the call while the device spins
@@ -320,6 +336,14 @@ BF16_PEAK = 989e12
 RESUME_LAYERS, RESUME_S = 2, 512
 #: (e) greedy decode steps of the trained model through K3.
 TRAIN_DECODE_STEPS = 8
+#: Phase 11, the mesh on the card.  (a) the sharded train step against
+#: the unsharded one at the reference's sharded-step tolerances
+#: (tests/test_distributed.py), each timed over MESH_STEPS steps.
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_TOL = dict(atol=3e-5, rtol=1e-3)
+MESH_STEPS = 5
+#: (d) the dry run's gate cell, run host-only in a subprocess.
+DRYRUN_CELL = ("mamba2-130m", "decode_32k")
 
 
 def close(got, want, tag: str, atol: float, rtol: float) -> float:
@@ -2300,6 +2324,238 @@ def train_guard(dev) -> None:
           f"raises RuntimeError: {message}", flush=True)
 
 
+def full(t):
+    """A DTensor's whole value; any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def event_median(fn, n: int) -> float:
+    """Median CUDA-event time (ms) of ``n`` calls of ``fn``, the host's
+    launches inside."""
+    ms = []
+    for _ in range(n):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return statistics.median(ms)
+
+
+def mesh_train(mesh, dev, smi: str) -> tuple:
+    """11a. Phase 10b's first step (qwen3-0.6b at full width and depth,
+    the same seeded masters and batch 0) unsharded and sharded over
+    ``mesh`` by ``param_specs`` under ``use_mesh``: loss and every
+    parameter at the reference's tolerances; both timed.  Returns the
+    masters, the step, its batch and the unsharded ``step_ms``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.ctx import use_mesh
+    from repro_torch.distributed.sharding import distribute, param_specs
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS[LM_ARCH].replace(remat="full", attn_impl="chunked")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    opt = init_opt_state(params)
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S, 0, dev)
+    step = make_step(cfg, steps=TRAIN_STEPS)
+    new, _, metrics = step(params, opt, batch)
+    want_loss = float(metrics["loss"])
+    want = [t.cpu() for t in tree_leaves(new)]
+    del new, metrics
+    plain_ms = event_median(lambda: step(params, opt, batch), MESH_STEPS)
+    with use_mesh(mesh):
+        specs = param_specs(params, mesh)
+        placed = (distribute(params, specs, mesh),
+                  {"m": distribute(opt["m"], specs, mesh),
+                   "v": distribute(opt["v"], specs, mesh),
+                   "step": opt["step"]},
+                  distribute(batch, batch_specs(batch, mesh), mesh))
+        new, _, metrics = step(*placed)
+        got_loss = float(full(metrics["loss"]))
+        got = [full(t) for t in tree_leaves(new)]
+        del new, metrics
+        mesh_ms = event_median(lambda: step(*placed), MESH_STEPS)
+    if not abs(got_loss - want_loss) <= MESH_LOSS_RTOL * abs(want_loss):
+        raise AssertionError(f"mesh train: loss {got_loss} sharded, "
+                             f"{want_loss} unsharded")
+    worst = max(close(g, w.to(dev), f"mesh train leaf {i}",
+                      **MESH_PARAM_TOL)
+                for i, (g, w) in enumerate(zip(got, want)))
+    kinds = sorted({str(p) for t in tree_leaves(placed[0])
+                    for p in t.placements})
+    print(f"mesh train {LM_ARCH} full width ({cfg.n_layers} layers), "
+          f"B={TRAIN_B} S={TRAIN_S}, (1, 1) mesh over NCCL, params laid "
+          f"out by param_specs ({', '.join(kinds)}): loss {got_loss:.6f} "
+          f"sharded, {want_loss:.6f} unsharded; {len(got)} parameters "
+          f"after the step, max abs err {worst:.3e} (gate atol="
+          f"{MESH_PARAM_TOL['atol']} rtol={MESH_PARAM_TOL['rtol']})  "
+          f"step_ms={mesh_ms:.1f} sharded, {plain_ms:.1f} unsharded "
+          f"(median of {MESH_STEPS}, CUDA events)  card: {smi}", flush=True)
+    return cfg, params, opt, step, batch, plain_ms
+
+
+def mesh_serve(mesh, masters: dict, dev, smi: str) -> None:
+    """11b. qwen3-0.6b's prefill and decode through ``specs.build_cell``
+    on ``mesh`` (default ``attn_impl``, as the reference's cells), bf16,
+    against the unsharded ``make_prefill_step`` and ``make_decode_step``
+    at the bf16 logit gate; the decode's new cache rows must be the
+    unsharded step's bit for bit (one rank runs the unsharded ops)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import init_caches
+    from repro_torch.models.lm import cast
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = ARCHS[LM_ARCH]
+    params = cast(masters, torch.bfloat16)
+    gen = torch.Generator().manual_seed(11)
+    B, S, max_seq = 4, 2048, 4096
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                     generator=gen).to(dev)}
+    cell = build_cell(LM_ARCH, "prefill_32k", mesh, cfg_override=cfg,
+                      device=dev)
+    placed = cell.place(params, batch)
+    logits, caches = cell.run(*placed)
+    plain = make_prefill_step(cfg, device=dev)
+    want, (k, v) = plain(params, batch)
+    pre = lm_check(full(logits), want, "mesh prefill", **LM_TOL["bfloat16"])
+    pre_ms = event_median(lambda: cell.run(*placed), 3)
+    plain_pre_ms = event_median(lambda: plain(params, batch), 3)
+
+    def filled():
+        c = init_caches(cfg, B, max_seq, device=dev)
+        c["k"][:, :, :S], c["v"][:, :, :S] = k, v
+        return c
+
+    token = want.argmax(-1).to(torch.int32)
+    lengths = torch.full((B,), S + 1, dtype=torch.int32, device=dev)
+    dcell = build_cell(LM_ARCH, "decode_32k", mesh, cfg_override=cfg,
+                       device=dev)
+    dplaced = dcell.place(params, token, filled(), lengths)
+    got = full(dcell.run(*dplaced))
+    plain_caches = filled()
+    dwant = make_decode_step(cfg, device=dev)(params, token, plain_caches,
+                                              lengths)
+    dec = lm_check(got, dwant, "mesh decode", **LM_TOL["bfloat16"])
+    for name in ("k", "v"):
+        row = full(dplaced[2][name])[:, :, S]
+        if not torch.equal(row, plain_caches[name][:, :, S]):
+            err = (row.float() - plain_caches[name][:, :, S].float()).abs()
+            raise AssertionError(f"mesh decode cache {name}: the new row "
+                                 f"differs from the unsharded step's, max "
+                                 f"abs err {err.max().item():.3e}")
+    print(f"mesh serve {LM_ARCH} bf16 through build_cell on the (1, 1) "
+          f"mesh ({cfg.attn_impl}): prefill B={B} S={S} rel L2 "
+          f"{pre['rel_l2']:.3e} max abs {pre['max_abs_err']:.3e} against "
+          f"make_prefill_step, prefill_ms={pre_ms:.1f} sharded, "
+          f"{plain_pre_ms:.1f} unsharded (median of 3); decode at length "
+          f"{S + 1} of {max_seq} rel L2 {dec['rel_l2']:.3e} max abs "
+          f"{dec['max_abs_err']:.3e} against make_decode_step, the new "
+          f"K/V rows bit for bit (torch.equal)  card: {smi}", flush=True)
+
+
+def mesh_roofline(cfg, params, opt, step, batch, step_ms: float,
+                  smi: str) -> None:
+    """11c. The unsharded step of 11a counted: FLOPs by
+    ``FlopCounterMode``, bytes accessed (and the same FLOPs again) by the
+    dry run's counter, through ``Roofline`` with the H100 constants,
+    beside the measured ``step_ms``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import CostCounter
+    from repro_torch.roofline.analysis import (HBM_BW, PEAK_FLOPS, Roofline,
+                                               model_flops_for)
+
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    flops = fc.get_total_flops()
+    with CostCounter() as cc:
+        step(params, opt, batch)
+    if abs(cc.flops - flops) > 1e-9 * flops:
+        raise AssertionError(f"mesh roofline: FlopCounterMode counted "
+                             f"{flops} FLOPs, the dry run's counter "
+                             f"{cc.flops}")
+    shape = ShapeCfg("train", TRAIN_S, TRAIN_B, "train")
+    roof = Roofline(arch=LM_ARCH, shape=f"train B={TRAIN_B} S={TRAIN_S}",
+                    mesh="1x1", n_chips=1, flops_per_device=flops,
+                    bytes_per_device=cc.bytes, coll_bytes_per_device=0.0,
+                    model_flops=model_flops_for(cfg, shape))
+    print(f"mesh roofline {LM_ARCH} train step (B={TRAIN_B} S={TRAIN_S}, "
+          f"bf16 compute, remat=full, chunked): counted {flops:.4e} FLOPs "
+          f"(matrix products, recompute and backward included), "
+          f"{cc.bytes:.4e} bytes accessed (every op's inputs and outputs), "
+          f"model FLOPs {roof.model_flops:.4e}; at {PEAK_FLOPS:.3e} FLOP/s "
+          f"and {HBM_BW:.3e} B/s: t_compute={roof.t_compute * 1e3:.3f} ms "
+          f"t_memory={roof.t_memory * 1e3:.3f} ms bottleneck="
+          f"{roof.bottleneck} roofline_fraction={roof.roofline_fraction:.4f}"
+          f"  measured step_ms={step_ms:.1f}  card: {smi}", flush=True)
+
+
+def mesh_dryrun() -> None:
+    """11d. The dry run's gate cell, host-only, in a subprocess."""
+    import os
+    import subprocess
+
+    arch, shape = DRYRUN_CELL
+    out = ROOT / "build" / "repro_torch" / "dryrun"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out)],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""},
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if "dry-run complete: 1 ok" not in r.stdout:
+        raise AssertionError(f"dry run: {r.stdout[-2000:]}"
+                             f"{r.stderr[-3000:]}")
+    rec = json.loads((out / f"{arch}__{shape}__16x16.json").read_text())
+    print(f"mesh dryrun {arch} x {shape} on the 16x16 mesh ({rec['n_chips']}"
+          f" fake ranks, meta tensors): status {rec['status']}  "
+          f"flops_per_device={rec['flops_per_device']:.4e} "
+          f"bytes_per_device={rec['bytes_per_device']:.4e} "
+          f"coll_bytes_per_device={rec['coll_bytes_per_device']:.4e} "
+          f"bottleneck={rec['bottleneck']} memory (estimate) "
+          f"{rec['memory_stats']}  {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def mesh_phase(dev, smi: str) -> None:
+    """Phase 11: the mesh on the card, a (1, 1) mesh over a one-rank
+    NCCL group on 127.0.0.1."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh(dev)
+        cfg, params, opt, step, batch, step_ms = mesh_train(mesh, dev, smi)
+        torch.cuda.empty_cache()
+        mesh_serve(mesh, params, dev, smi)
+        torch.cuda.empty_cache()
+        mesh_roofline(cfg, params, opt, step, batch, step_ms, smi)
+        del params, opt, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    mesh_dryrun()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def train_phase(dev, smi: str) -> None:
     """Phase 10: training on the card."""
     t0 = time.perf_counter()
@@ -2431,6 +2687,10 @@ def main() -> int:
 
     # 10. training on the card, then the trained weights through K2, K3
     train_phase(dev, smi)
+
+    # 11. the mesh on the card: sharded step, serving cells, roofline,
+    # dry run
+    mesh_phase(dev, smi)
 
     # 9. the kernels line, the card, and the result
     for e in entries:

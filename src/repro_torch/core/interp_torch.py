@@ -358,7 +358,7 @@ register_interpreter(InterpreterSpec(
     # unit-stride lane slicing only, like the CUDA kernel: a plan with
     # non-unit ReadPlan.i_stride must refuse, not miscompile
     capabilities=PLAN_FEATURES - frozenset({"strided_reads"}),
-    dtypes=frozenset({torch.float32, torch.float64}),
+    dtypes=frozenset({torch.float32, torch.float64, torch.bfloat16}),
     flags=frozenset(),
     description="plain PyTorch plan interpreter (Python loop over the "
                 "linearized grid; tensors as the carried windows and "

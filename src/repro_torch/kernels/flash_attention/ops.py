@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ...distributed.ctx import split_dim
 from .kernel import NEG_INF, flash_attention_fwd
 from .ref import dense_attention
 
@@ -34,7 +35,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     C = min(chunk, Skv)
     while C > 1 and Skv % C:
         C //= 2
-    qs = (q.float() * scale).reshape(B, Sq, KVH, group, D)
+    qs = split_dim(q.float() * scale, 2, KVH)  # (B, Sq, KVH, group, D)
     if qpos is None:
         q_off = q_offset if q_offset is not None else Skv - Sq
         qpos = torch.arange(Sq, device=q.device)[None, :] + q_off

@@ -16,6 +16,7 @@ import math
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.ctx import merge_last, put_rows, split_dim
 from ..kernels.flash_attention.ops import attention
 from ..kernels.flash_decode.ops import decode_attention
 from .common import dense_init, rmsnorm, rmsnorm_init
@@ -38,17 +39,15 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
 
 
 def _project_q(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = split_dim(x @ p["wq"].to(x.dtype), -1, cfg.n_heads)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     return q
 
 
 def _project_kv(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    B, S, _ = x.shape
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    k = split_dim(x @ p["wk"].to(x.dtype), -1, cfg.n_kv_heads)
+    v = split_dim(x @ p["wv"].to(x.dtype), -1, cfg.n_kv_heads)
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return k, v
@@ -66,8 +65,7 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                    mrope_sections=cfg.mrope_sections)
     o = attention(q, k, v, causal=causal, window=cfg.window, q_offset=0,
                   impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    B, S = x.shape[:2]
-    out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    out = merge_last(o) @ p["wo"].to(x.dtype)
     return out, (k, v)
 
 
@@ -95,14 +93,12 @@ def decode_self_attention(p: dict, x_t: torch.Tensor, cfg: ArchConfig, *,
     # a row past the cache keeps its old value, as the reference's
     # scatter drops it; clamped and selected on the device, with no host
     # read of ``lengths``
-    bidx = torch.arange(B, device=x.device)
     last = (lengths - 1).long()
     max_seq = cache_k.shape[1]
     keep = ((last < 0) | (last >= max_seq))[:, None, None]
     slot = last.clamp(0, max_seq - 1)
     for cache, new in ((cache_k, k), (cache_v, v)):
-        cache[bidx, slot] = torch.where(keep, cache[bidx, slot],
-                                        new[:, 0].to(cache.dtype))
+        put_rows(cache, slot, keep, new[:, 0])
     if cfg.attn_impl == "pallas":
         # K3 reads the caches in their own dtype and rounds to x's
         o = decode_attention(q[:, 0], cache_k, cache_v, lengths,
@@ -111,7 +107,7 @@ def decode_self_attention(p: dict, x_t: torch.Tensor, cfg: ArchConfig, *,
         o = decode_attention(q[:, 0], cache_k.to(x.dtype),
                              cache_v.to(x.dtype), lengths, window=cfg.window,
                              impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    return o.reshape(B, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    return merge_last(o) @ p["wo"].to(x.dtype)
 
 
 def cross_attention(p: dict, x: torch.Tensor, enc_kv, cfg: ArchConfig
@@ -120,12 +116,11 @@ def cross_attention(p: dict, x: torch.Tensor, enc_kv, cfg: ArchConfig
     ``enc_kv = (k, v)``, each (B, Se, KVH, D), computed once by
     :func:`encode_cross_kv`.  With ``"pallas"`` this is K2 at prefill
     and at decode (S = 1), as in the reference."""
-    B, S, _ = x.shape
     q = _project_q(p, x, cfg)
     k, v = enc_kv
     o = attention(q, k, v, causal=False, impl=cfg.attn_impl,
                   chunk=cfg.attn_chunk)
-    return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    return merge_last(o) @ p["wo"].to(x.dtype)
 
 
 def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ArchConfig):

@@ -63,11 +63,10 @@ def _sinusoids(pos: torch.Tensor, d: int) -> torch.Tensor:
     """(n,) float32 positions -> (n, d): sin at even columns, cos at odd."""
     dim = torch.arange(0, d, 2, device=pos.device).float()[None, :]
     angle = pos[:, None] / torch.pow(10000.0, dim / d)
-    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
-                     device=pos.device)
-    pe[:, 0::2] = torch.sin(angle)
-    pe[:, 1::2] = torch.cos(angle)
-    return pe
+    # interleaved without writing into a buffer, so that a DTensor of
+    # positions (under a mesh) works too
+    return torch.stack([torch.sin(angle), torch.cos(angle)],
+                       dim=-1).reshape(pos.shape[0], d)
 
 
 def sinusoidal_positions(seq: int, d: int, offset: int = 0, *,

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig
 from ..core.interpreters import resolve_device
+from ..distributed.ctx import constrain, lookup
 from ..tree import tree_map
 from .attention import (attn_init, cross_attention, decode_self_attention,
                         encode_cross_kv, self_attention)
@@ -222,7 +223,7 @@ def _encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     block = _remat(lambda bp, x: _enc_block(cast(bp, dt), x, cfg, positions),
                    cfg)
     for bp in params["enc_blocks"]:
-        x = block(bp, x)
+        x = constrain(block(bp, x), "b", None, "m")
     return layernorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -259,7 +260,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     fam = cfg.family
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"].to(dt)[tokens]
+    x = constrain(lookup(params["embed"].to(dt), tokens), "b", None, "m")
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -275,6 +276,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                                                   positions), cfg)
         for bp in params["blocks"]:
             x, kv = block(bp, x)
+            x = constrain(x, "b", None, "m")
             if collect:
                 kvs.append(kv)
     elif fam == "moe":
@@ -282,13 +284,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                                                 positions), cfg)
         for bp in params["blocks"]:
             x, kv, a = block(bp, x)
+            x = constrain(x, "b", None, "m")
             if collect:
                 kvs.append(kv)
             aux = aux + a
     elif fam == "ssm":
         block = _remat(lambda bp, x: _ssm_block(cast(bp, dt), x, cfg), cfg)
         for bp in params["blocks"]:
-            x = block(bp, x)
+            x = constrain(block(bp, x), "b", None, "m")
     elif fam == "hybrid":
         shared = cast(params["shared_attn"], dt)
 
@@ -300,6 +303,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         for group in _groups(cfg, len(params["blocks"])):
             x, kv = group_body([params["blocks"][i] for i in group], shared,
                                x)
+            x = constrain(x, "b", None, "m")
             if collect:
                 kvs.append(kv)
     else:  # encdec
@@ -310,13 +314,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             cast(bp, dt), x, enc_out, cfg, positions), cfg)
         for bp in params["blocks"]:
             x, kv, enc_kv = block(bp, x, enc_out)
+            x = constrain(x, "b", None, "m")
             if collect:
                 kvs.append(kv)
                 enc_kvs.append(enc_kv)
     if last_only:
         x = x[:, -1:]
     x = _final_norm(params, x, cfg)
-    logits = (x @ _head(params).to(dt)).float()
+    logits = constrain((x @ _head(params).to(dt)).float(), "b", None, "m")
     out = {"logits": logits, "aux": aux}
     if mode == "prefill":
         caches = _stacked(kvs) if kvs else None
@@ -415,7 +420,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
     require_ported(cfg)
     dt = DTYPES[cfg.dtype]
     fam = cfg.family
-    x = params["embed"].to(dt)[token]  # (B, d)
+    x = lookup(params["embed"].to(dt), token)  # (B, d)
     blocks = params["blocks"]
     if fam in ("dense", "vlm", "moe"):
         for layer, bp in enumerate(blocks):
@@ -438,4 +443,4 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict,
             x = _dec_decode_layer(cast(bp, dt), x, caches, layer, lengths,
                                   cfg, dt)
     x = _final_norm(params, x, cfg)
-    return (x @ _head(params).to(dt)).float()
+    return constrain((x @ _head(params).to(dt)).float(), "b", "m")

@@ -23,6 +23,7 @@ import math
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.ctx import local_rows
 from .common import dense_init, silu
 
 
@@ -66,7 +67,34 @@ def route(p: dict, x: torch.Tensor, cfg: ArchConfig):
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    """x: (B, S, d) -> (y (B, S, d), aux float32 scalar)."""
+    """x: (B, S, d) -> (y (B, S, d), aux float32 scalar).  Routing,
+    dispatch and combine work within each sequence, so under a mesh they
+    run on each rank's own sequences (``local_rows``: DTensor has no
+    sharding rules for their sorts and scatter-adds); the expert
+    products between them are DTensor ops laid out by the expert
+    weights, so the model axis splits them.  The load-balance loss then
+    averages over the whole batch."""
+    B, S, _ = x.shape
+    E = cfg.moe.n_experts
+    h, probs, first, dest, tok, w = local_rows(
+        lambda p, x: _dispatch(p, x, cfg), {"router": p["router"]}, x)
+    y = _experts(p, h)
+    (out,) = local_rows(lambda _, *a: (_combine(*a, S),), {}, y, dest,
+                         tok, w)
+    # Switch-style load-balance auxiliary loss
+    me = probs.mean(dim=(0, 1))
+    ce = first.sum(0) / (B * S)
+    aux = E * (me * ce).sum()
+    return out, aux
+
+
+def _dispatch(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """``(h (B, E, C, d), probs (B, S, E), first (B, E), dest, tok,
+    weight)``: each expert's first ``C`` tokens of each sequence (zeros
+    in free slots), the router's probabilities, each sequence's count of
+    first choices of each expert (float32), and for each sorted (token,
+    slot) pair (B, S K) its slot in ``h``, its source token and its
+    combine weight (zero where dropped)."""
     m = cfg.moe
     B, S, d = x.shape
     E, K = m.n_experts, m.top_k
@@ -74,11 +102,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig):
     dev = x.device
 
     probs, gate_w, gate_i = route(p, x, cfg)
-    # Switch-style load-balance auxiliary loss
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(E, device=dev).index_add_(
-        0, gate_i[..., 0].reshape(-1), torch.ones(B * S, device=dev)) / (B * S)
-    aux = E * (me * ce).sum()
+    first = torch.zeros((B, E), device=dev).scatter_add_(
+        1, gate_i[..., 0], torch.ones((B, S), device=dev))
 
     # per-sequence sort-based dispatch
     flat_e = gate_i.reshape(B, S * K)  # expert of each (token, slot)
@@ -96,23 +121,41 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig):
     xs = x.gather(1, tok[..., None].expand(B, S * K, d))
     xs = torch.where(keep[..., None], xs, torch.zeros((), dtype=x.dtype,
                                                       device=dev))
-    # one trash slot at the end absorbs the dropped tokens
-    slots = E * C + 1
+    # slots laid out (E, B, C), the expert products' batch order; one
+    # trash slot after them all absorbs the dropped tokens
     bidx = torch.arange(B, device=dev)[:, None]
-    buf = torch.zeros((B * slots, d), dtype=x.dtype, device=dev)
-    buf.index_add_(0, (bidx * slots + torch.where(keep, dest, E * C))
-                   .reshape(-1), xs.reshape(B * S * K, d))
-    buf = buf.reshape(B, slots, d)
+    slot = (sorted_e * B + bidx) * C + pos.clamp(0, C - 1)
+    buf = torch.zeros((E * B * C + 1, d), dtype=x.dtype, device=dev)
+    buf.index_add_(0, torch.where(keep, slot, E * B * C).reshape(-1),
+                   xs.reshape(B * S * K, d))
+    h = buf[:E * B * C].view(E, B, C, d).transpose(0, 1)
+    return h, probs, first, dest, tok, (sorted_w * keep).to(x.dtype)
 
-    h = buf[:, :E * C].reshape(B, E, C, d)
-    g = silu(torch.einsum("becd,edf->becf", h, p["w_gate"].to(x.dtype)))
-    u = torch.einsum("becd,edf->becf", h, p["w_up"].to(x.dtype))
-    y = torch.einsum("becf,efd->becd", g * u, p["w_down"].to(x.dtype))
-    y = y.reshape(B, E * C, d)
 
-    gathered = y.gather(1, dest[..., None].expand(B, S * K, d))
-    contrib = gathered * (sorted_w * keep)[..., None].to(x.dtype)
-    out = torch.zeros((B * S, d), dtype=x.dtype, device=dev)
+def _experts(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """The experts' gated FFN over their slots, (B, E, C, d) -> (B, E,
+    C, d), computed expert-major: each product is one batched matrix
+    product over (E, B C), whose rows merge without a copy (DTensor,
+    2.13, fails to copy-merge them from a sharded view)."""
+    h = h.transpose(0, 1)
+    g = silu(torch.einsum("ebcd,edf->ebcf", h, p["w_gate"].to(h.dtype)))
+    u = torch.einsum("ebcd,edf->ebcf", h, p["w_up"].to(h.dtype))
+    y = torch.einsum("ebcf,efd->ebcd", g * u, p["w_down"].to(h.dtype))
+    return y.transpose(0, 1)
+
+
+def _combine(y: torch.Tensor, dest: torch.Tensor, tok: torch.Tensor,
+             weight: torch.Tensor, S: int) -> torch.Tensor:
+    """Each of the ``S`` tokens' weighted sum of its experts' outputs:
+    ``y`` (B, E, C, d) read at ``dest`` (B, S K), scaled by ``weight``
+    and summed into token ``tok``; (B, S, d)."""
+    B, E, C, d = y.shape
+    SK = tok.shape[1]
+    gathered = y.reshape(B, E * C, d).gather(
+        1, dest[..., None].expand(B, SK, d))
+    contrib = gathered * weight[..., None]
+    out = torch.zeros((B * S, d), dtype=y.dtype, device=y.device)
+    bidx = torch.arange(B, device=y.device)[:, None]
     out.index_add_(0, (bidx * S + tok).reshape(-1),
-                   contrib.reshape(B * S * K, d))
-    return out.reshape(B, S, d), aux
+                   contrib.reshape(B * SK, d))
+    return out.reshape(B, S, d)

@@ -17,9 +17,9 @@ cache).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed.ctx import merge_last, split_dim, whole
 from ..kernels.ssd.ops import ssd
 from .common import dense_init, rmsnorm, rmsnorm_init, silu
 
@@ -47,20 +47,27 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
 
 
 def _split(proj: torch.Tensor, cfg: ArchConfig):
-    """``proj`` -> (z, x, B, C, dt), views of its last dim."""
+    """``proj`` -> (z, x, B, C, dt), views of its last dim.  Under a
+    mesh the last dim is made whole first: DTensor cannot cut a dim
+    sharded over the model axis into these pieces, nor split d_inner
+    into heads the axis does not divide (no-op without a mesh)."""
     s = cfg.ssm
     di = s.d_inner(cfg.d_model)
     H = s.n_heads(cfg.d_model)
     N = s.d_state
-    return torch.split(proj, [di, di, N, N, H], dim=-1)
+    return torch.split(whole(proj, -1), [di, di, N, N, H],
+                       dim=proj.ndim - 1)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over (B, S, C) with taps (W, C), the taps
     unrolled as in the reference."""
-    W, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, W - 1, 0))
+    W, (B, S, C) = w.shape[0], x.shape
+    # zeros in front, by concatenation: DTensor (before 2.13) fails to
+    # pad a sharded tensor
+    pad = torch.cat([torch.zeros((B, W - 1, C), dtype=x.dtype,
+                                 device=x.device), x], dim=1)
     out = torch.zeros_like(x)
     for t in range(W):
         out = out + pad[:, t:t + S, :] * w[t]
@@ -82,8 +89,6 @@ def _ssd_impl(cfg: ArchConfig) -> str:
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Sequence path (train/prefill): (B, S, d) -> (B, S, d)."""
     s = cfg.ssm
-    B, S, _ = x.shape
-    di = s.d_inner(cfg.d_model)
     H = s.n_heads(cfg.d_model)
     proj = x @ p["w_in"].to(x.dtype)
     z, xs, bm, cm, dt = _split(proj, cfg)
@@ -91,9 +96,10 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                            p["conv_b"].to(x.dtype)))
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["a_log"])
-    y = ssd(xs.reshape(B, S, H, s.head_dim), dt, A, bm.float(), cm.float(),
+    y = ssd(split_dim(xs, -1, H), dt, A, bm.float(), cm.float(),
             p["d_skip"], chunk=cfg.ssd_chunk,
-            impl=_ssd_impl(cfg)).reshape(B, S, di)
+            impl=_ssd_impl(cfg))
+    y = merge_last(y)
     y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
     return y @ p["w_out"].to(x.dtype)
 
@@ -120,7 +126,6 @@ def mamba_decode_step(p: dict, x_t: torch.Tensor, cache: dict,
     window and state into ``cache`` (this layer's views) in place."""
     s = cfg.ssm
     B = x_t.shape[0]
-    di = s.d_inner(cfg.d_model)
     H = s.n_heads(cfg.d_model)
     P = s.head_dim
     proj = x_t @ p["w_in"].to(x_t.dtype)
@@ -132,13 +137,16 @@ def mamba_decode_step(p: dict, x_t: torch.Tensor, cache: dict,
     dt = _softplus(dt.float() + p["dt_bias"])  # (B, H)
     A = -torch.exp(p["a_log"])
     a = torch.exp(dt * A)
-    xh = xc.reshape(B, H, P).float()
+    # the conv cache may shard d_inner (see ``_split``)
+    xh = whole(xc, -1).reshape(B, H, P).float()
     upd = (dt[..., None, None] * bm.float()[:, None, :, None]
            * xh[:, :, None, :])
     state = a[..., None, None] * cache["state"] + upd
     cache["state"].copy_(state)
-    y = torch.einsum("bn,bhnp->bhp", cm.float(), state)
+    # einsum flattens (h, p), which DTensor (before 2.13) refuses with p
+    # sharded as the cache shards it
+    y = torch.einsum("bn,bhnp->bhp", cm.float(), whole(state, -1))
     y = y + p["d_skip"][None, :, None] * xh
-    y = y.reshape(B, di).to(x_t.dtype)
+    y = merge_last(y).to(x_t.dtype)
     y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
     return y @ p["w_out"].to(x_t.dtype)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.ctx import whole
 from ..models import forward
 from ..optim.adamw import AdamWCfg, adamw_update, compress_grads
 from ..tree import tree_leaves, tree_map
@@ -30,7 +31,10 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
     """logits (B, S, V) float32, targets (B, S) int: the mean of
     logsumexp minus the gold logit."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    # DTensor's gather along a sharded vocab leaves a masked partial sum
+    # it cannot reduce: take the gold logits from whole rows
+    gold = torch.gather(whole(logits, -1), -1,
+                        targets[..., None].long())[..., 0]
     return (lse - gold).mean()
 
 

@@ -35,7 +35,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "train.step", "ckpt.checkpoint", "ft.watchdog",
                 "launch.train", "scripts.warm_cache", "scripts.plan_lint",
                 "examples.quickstart", "examples.cosmo_fusion",
-                "examples.serve_lm", "examples.train_lm"):
+                "examples.serve_lm", "examples.train_lm",
+                "roofline.analysis", "roofline.report", "distributed.ctx",
+                "distributed.sharding", "distributed.pipeline",
+                "launch.mesh", "launch.specs", "launch.dryrun"):
         assert f"repro_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
