@@ -11,8 +11,9 @@ Phases, each of which raises on failure:
 
 1. environment: torch, CUDA and nvcc versions, the card's name and
    power limit;
-2. build: every CallPlan of the 15 programs is emitted and built with
-   one ``nvcc`` per source, all started together; the tensor-core
+2. build: every CallPlan of the 15 programs is emitted, in float32 and
+   in bf16, and built with one ``nvcc`` per source, all started
+   together; the tensor-core
    instructions of K2's and K4's libraries are counted (``cuobjdump
    -sass``, HMMA), and the run fails if either has none;
 3. conformance: all 15 programs on the ``"cuda"`` kernel against the
@@ -20,6 +21,13 @@ Phases, each of which raises on failure:
    forced row chunk and with the default one; the four plane-window
    programs also with small forced plane chunks and row tiles (one that
    does not divide the planes, and 1 x 1);
+3b. the same in bf16 (inputs rounded to bf16): every K1 call of every
+   program and chunking held to Gates E and R (``BF16_TOL``,
+   ``GATE_E_FACTOR``, ``GATE_E_FLOOR``) against ``interp_torch``'s call
+   on the same inputs in bf16 and in float64 (the exact value), the
+   programs without an accumulator also as whole programs, a second
+   launch bit for bit equal to the first; the accumulating programs'
+   outputs to Gate E over ``LONG_SUMS`` rows;
 4. main path at the sizes of the repository's benchmarks:
    ``compile_program(prog)`` (backend ``"cuda"``) on normalization
    (4096 x 2048), hydro1d (2048 x 4096) and cosmo (64 x 512 x 512),
@@ -34,12 +42,19 @@ Phases, each of which raises on failure:
    then, the same way, the plane-window programs, whose calls run in
    plane chunks times row tiles (heat3d at 6 x 32 x 256 and 64 x 512 x
    512, heat3d_stage and heat3d_residual_norm at 64 x 512 x 512,
-   advect4d_halo at 4 x 16 x 512 x 512);
+   advect4d_halo at 4 x 16 x 512 x 512); then normalization, hydro1d,
+   cosmo and heat3d (64 x 512 x 512) in bf16, held to Gates E and R
+   (both relative L2 errors printed), with their times and byte bounds
+   at 2 bytes an element (``kernels`` entries with ``"dtype":
+   "bfloat16"``);
 4b. the compiler's entry points and PlanServe, each through K1: the
    backend ``"auto"`` picks for each of the 15 programs, without and
    with ``dim_sizes`` at main-path size (every program, split ones
    included, must take ``"cuda"`` and launch K1), with K1's per-block
-   bytes at that size; the fused-source emitter (``backend="torch"``)
+   bytes at that size; ``"auto"`` in bf16 for hydro1d and normalization
+   (K1, the bits of ``backend="cuda"``) and ``compile_batched`` in bf16
+   (hydro1d, B = 4, bit for bit its single calls); the fused-source
+   emitter (``backend="torch"``)
    on all 15 programs against ``interp_torch`` on the card, then
    normalization and smooth_norm at 4096 x 2048 timed on the emitter
    and on K1 (median of 5), and K1 against the emitter where the
@@ -151,8 +166,10 @@ Phases, each of which raises on failure:
    (c) the unsharded step counted by ``FlopCounterMode`` and the dry
    run's byte counter, through ``Roofline`` with the H100's
    constants, beside its measured time; (d) the dry run's gate cell
-   (mamba2-130m x decode_32k on the 16 x 16 mesh of 256 fake ranks), a
-   host-only subprocess that must print ``dry-run complete: 1 ok``.
+   (mamba2-130m x decode_32k on the 16 x 16 mesh of 256 fake ranks) and
+   the two cells torch 2.11's DTensor once refused (zamba2-2.7b x
+   decode_32k, mamba2-130m x train_4k), each a host-only subprocess that
+   must print ``dry-run complete: 1 ok``.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is the
 device's alone: the host enqueues the call while the device spins
@@ -181,6 +198,31 @@ SMALL_CHUNK = 3
 #: Plane chunks forced on the plane-window programs at conformance size
 #: (2 does not divide k = 5).
 SMALL_PLANE_CHUNK = 2
+# K1 in bf16 against the exact value (the same call or program in
+# float64, interp_torch, on the bf16-rounded inputs) and the plain bf16
+# version (interp_torch in bf16).  Gate E: K1's relative L2 error to the
+# exact value at most 1.25 times the plain version's, or one bf16 step
+# (2**-8).  Gate R (no accumulator): K1 within the repository's bf16
+# tolerance of the plain version, atol = rtol = 2e-2, atol times
+# max(max|plain|, 1) (tests/test_torch_interp_bf16.py).  Both are held
+# call by call (an accumulator's rows before the host folds their
+# lanes), and program by program for the programs without an
+# accumulator; the accumulating programs' outputs are held to Gate E over
+# LONG_SUMS rows, where the plain bf16 accumulator stagnates (over a few
+# rows the two round the same few values, then the host folds lanes and
+# takes roots in bf16 for both, and which lands nearer is chance).
+BF16_TOL = 2e-2
+GATE_E_FACTOR, GATE_E_FLOOR = 1.25, 2.0 ** -8
+#: (k = 4, l = 3: the plane stencils keep an interior of 2 planes)
+LONG_SUMS = {"i": 200, "j": 1024, "k": 4, "l": 3}
+#: phase 4 in bf16: the three main-path stencils and heat3d at cosmo's
+#: size
+BF16_PATH = (("normalization", {"j": 4096, "i": 2048}),
+             ("hydro1d", {"j": 2048, "i": 4096}),
+             ("cosmo", {"k": 64, "j": 512, "i": 512}),
+             ("heat3d", {"k": 64, "j": 512, "i": 512}))
+#: phase 4b: "auto" in bf16 on the card, and compile_batched in bf16
+BF16_AUTO = ("hydro1d", "normalization")
 K1_SOURCE = "src/repro_torch/kernels/stencil2d/csrc/stencil2d.cuh"
 K1_REPLACES = "src/repro/kernels/stencil2d/kernel.py:95"
 K2_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -342,8 +384,10 @@ TRAIN_DECODE_STEPS = 8
 MESH_LOSS_RTOL = 1e-5
 MESH_PARAM_TOL = dict(atol=3e-5, rtol=1e-3)
 MESH_STEPS = 5
-#: (d) the dry run's gate cell, run host-only in a subprocess.
-DRYRUN_CELL = ("mamba2-130m", "decode_32k")
+#: (d) the dry run's gate cell, and the two cells that torch 2.11's
+#: DTensor view rules once refused, each run host-only in a subprocess.
+DRYRUN_CELLS = (("mamba2-130m", "decode_32k"), ("zamba2-2.7b", "decode_32k"),
+                ("mamba2-130m", "train_4k"))
 
 
 def close(got, want, tag: str, atol: float, rtol: float) -> float:
@@ -400,19 +444,99 @@ def max_err(got: dict, want: dict, tag: str) -> float:
                for k, w in want.items())
 
 
-def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
-    """Run ``n`` once through ``compile_program`` (backend ``"cuda"``) at
-    ``dims`` with the launch count set to 0 just before, hold it against
-    the unfused evaluator and the plain interpreter, time it, and return
-    its entry of the ``kernels`` line."""
+def rel_l2(got, exact) -> float:
+    """|got - exact| / |exact| in float64 (|got - exact| where ``exact``
+    is zero)."""
+    g, e = got.double(), exact.double()
+    num, den = float((g - e).norm()), float(e.norm())
+    return num / den if den > 0 else num
+
+
+def gate_e(got: dict, plain: dict, exact: dict, tag: str) -> dict:
+    """Gate E on every output; returns ``{output: (K1's relative L2 to
+    the exact value, the plain version's)}``; raises past the gate or on
+    a non-finite value."""
+    out = {}
+    for k, e in exact.items():
+        if not bool(torch.isfinite(got[k].float()).all()):
+            raise AssertionError(f"{tag}:{k}: non-finite values")
+        mine, theirs = rel_l2(got[k], e), rel_l2(plain[k], e)
+        if not mine <= max(GATE_E_FACTOR * theirs, GATE_E_FLOOR):
+            raise AssertionError(
+                f"{tag}:{k}: Gate E: K1 bf16 relative L2 {mine:.3e} to the "
+                f"exact value, the plain bf16 version {theirs:.3e}")
+        out[k] = (mine, theirs)
+    return out
+
+
+def gate_r(got: dict, plain: dict, tag: str) -> float:
+    """Gate R on every output; returns the max |got - plain|."""
+    return max(close(got[k], p, f"{tag}:{k} (Gate R)",
+                     BF16_TOL * max(float(p.float().abs().max()), 1.0),
+                     BF16_TOL) for k, p in plain.items())
+
+
+def call_gates(records, tag: str) -> tuple[float, float]:
+    """Gates E and R on each recorded bf16 K1 call (``bench.capture``):
+    its outputs, an accumulator's rows before the host folds their
+    lanes, against ``interp_torch``'s call on the same inputs in bf16
+    and, the exact value, in float64.  K1's outputs come from one more
+    launch of the recorded call (not counted in ``kernel.launches``).
+    Returns the largest (K1's, the plain version's) relative L2 to the
+    exact value."""
+    from repro_torch.core.interpreters import assemble, get_interpreter
+    from repro_torch.kernels.stencil2d import kernel as k1
+
+    plain = get_interpreter("interp_torch")
+    worst = (0.0, 0.0)
+    for lib, lay, run, args in records:
+        call = lay.call
+        *outer, nj, ni = run.sizes
+        dev = args[0].device
+
+        def values(padded):
+            padded = padded if isinstance(padded, (list, tuple)) \
+                else [padded]
+            return {o.name: assemble(call, o, p, nj, ni, tuple(outer),
+                                     lanes=True)
+                    for o, p in zip(call.outputs, padded)}
+        outs, tensors = k1.launch_tensors(lay, run, args)
+        k1.launch(lib, run, tensors, threads=run.threads,
+                  stream=torch.cuda.current_stream(dev).cuda_stream)
+        got = values(outs)
+        want = values(plain.build_call(call, run.sizes, torch.bfloat16,
+                                       device=dev)[0](*args))
+        exact = values(plain.build_call(call, run.sizes, torch.float64,
+                                        device=dev)[0](
+            *[a.double() for a in args]))
+        errs = gate_e(got, want, exact, f"{tag}/{call.name}")
+        if not call.accs:
+            gate_r(got, want, f"{tag}/{call.name}")
+        worst = (max(worst[0], *(m for m, _ in errs.values())),
+                 max(worst[1], *(t for _, t in errs.values())))
+    return worst
+
+
+def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
+          dtype=torch.float32) -> dict:
+    """Run ``n`` once through ``compile_program`` (backend ``"cuda"``,
+    ``dtype``) at ``dims`` with the launch count set to 0 just before,
+    hold it against the unfused evaluator and the plain interpreter (in
+    bf16: Gates E and R against the plain interpreter in bf16 and the
+    exact value, program by program and call by call), time it, and
+    return its entry of the ``kernels`` line."""
     from repro_torch.core import ALL_PROGRAMS, build_unfused, compile_program
     from repro_torch.kernels import build
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
 
+    bf16 = dtype == torch.bfloat16
     prog = ALL_PROGRAMS[n]()
-    gen = compile_program(prog, backend="cuda")
-    arrs = bench.make_inputs(n, gen.kernel_plan, dims, 11, dev)
+    gen = compile_program(prog, backend="cuda", dtype=dtype)
+    arrs = bench.make_inputs(n, gen.kernel_plan, dims, 11, dev, bf16=bf16)
+    exact_in = arrs
+    if bf16:  # the kernel's own dtype: no cast inside the timed call
+        arrs = {k: v.bfloat16() for k, v in arrs.items()}
     k1.launches = 0
     got, records = bench.capture(lambda: gen.fn(**arrs))
     launches = k1.launches
@@ -426,14 +550,42 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
             raise AssertionError(f"main/{n}:{k}: differs between two runs")
 
     ufn = build_unfused(prog, device=dev).fn
-    err_unfused = max_err(got, ufn(**arrs), f"main/{n}/unfused")
-    plain = compile_program(prog, backend="interp_torch", device=dev)
+    unfused = ufn(**arrs)
+    plain = compile_program(prog, backend="interp_torch", dtype=dtype,
+                            device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = plain.fn(**arrs)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err_plain = max_err(got, want, f"main/{n}/interp_torch")
+    extra = {}
+    if bf16:
+        exact = compile_program(prog, backend="interp_torch",
+                                dtype=torch.float64, device=dev
+                                ).fn(**exact_in)
+        errs = gate_e(got, want, exact, f"main/{n}/bf16")
+        has_acc = any(c.accs for c in gen.kernel_plan.calls)
+        err_plain = max(float((got[k].float() - w.float()).abs().max())
+                        for k, w in want.items())
+        if not has_acc:
+            gate_r(got, want, f"main/{n}/bf16")
+        calls = call_gates(records, f"main/{n}/bf16")
+        k1_rel = max(m for m, _ in errs.values())
+        plain_rel = max(t for _, t in errs.values())
+        err_unfused = max(rel_l2(unfused[k], e) for k, e in exact.items())
+        accuracy = (f"rel_l2 to the exact value: K1={k1_rel:.3e} "
+                    f"interp_torch_bf16={plain_rel:.3e} (Gate E"
+                    f"{'' if has_acc else ' and R'}; each call: K1 "
+                    f"{calls[0]:.3e}, plain {calls[1]:.3e})  unfused_bf16 "
+                    f"rel_l2={err_unfused:.3e}  max_abs_err vs plain="
+                    f"{err_plain:.3e}")
+        extra = {"dtype": "bfloat16", "rel_l2": k1_rel,
+                 "plain_rel_l2": plain_rel}
+    else:
+        err_unfused = max_err(got, unfused, f"main/{n}/unfused")
+        err_plain = max_err(got, want, f"main/{n}/interp_torch")
+        accuracy = (f"err_vs_unfused={err_unfused:.3e}  "
+                    f"err_vs_plain={err_plain:.3e}")
 
     fn_ms = bench.event_ms(lambda: gen.fn(**arrs), flush)
     unfused_ms = bench.event_ms(lambda: ufn(**arrs), flush)
@@ -450,7 +602,8 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
                      f"{run.pchunk_len}x{run.chunk_len}"
                      for _, _, run, _ in records)
     smem = "+".join(str(run.smem_bytes) for _, _, run, _ in records)
-    used = [build.registers(k1.job(lay.call)) for _, lay, _, _ in records]
+    used = [build.registers(k1.job(lay.call, dtype))
+            for _, lay, _, _ in records]
     regs = "+".join(str(r) for r, _ in used)
     spill = "+".join(str(b) for _, b in used)
     resident = "+".join(str(run.resident) for _, _, run, _ in records)
@@ -458,26 +611,92 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str) -> dict:
     barriers = "+".join(str(lay.barriers_per_row)
                         for _, lay, _, _ in records)
     shape = tuple(dims.values())
-    print(f"main {n:14s} {shape}: launches={launches}  blocks={blocks} "
+    print(f"main {n:14s} {shape}{' bf16' if bf16 else ''}: launches="
+          f"{launches}  blocks={blocks} "
           f"({tiles})  smem={smem}  regs={regs}  local_bytes={spill}  "
           f"resident={resident}  waves={waves}  "
-          f"barriers_per_row={barriers}  "
-          f"err_vs_unfused={err_unfused:.3e}  "
-          f"err_vs_plain={err_plain:.3e}  fn_ms={fn_ms:.4f}  "
+          f"barriers_per_row={barriers}  {accuracy}  fn_ms={fn_ms:.4f}  "
           f"kernel_ms={kernel_ms:.4f}  unfused_ms={unfused_ms:.4f}  "
           f"plain_ms={plain_ms:.1f}  bytes={nbytes}  "
           f"bound_ms={bound_ms:.4f} (at {rate / 1e12:.2f} TB/s)  "
           f"card: {smi}", flush=True)
     return {
-        "name": f"stencil2d[{n} {'x'.join(map(str, shape))}]",
+        "name": f"stencil2d[{n} {'x'.join(map(str, shape))}"
+                f"{' bf16' if bf16 else ''}]",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": err_plain,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": None,
         "fn_ms": fn_ms, "unfused_ms": unfused_ms, "blocks": blocks,
         "tiles": tiles, "regs": regs, "resident": resident, "waves": waves,
-        "barriers_per_row": barriers,
+        "barriers_per_row": barriers, **extra,
     }
+
+
+def bf16_conformance(plans: dict, dev) -> None:
+    """Phase 3b: every program through K1 in bf16 at ``CONFORMANCE_DIMS``
+    in phase 3's chunk variants, held to Gates E and R against
+    ``interp_torch`` in bf16 and float64 on the card, call by call and
+    (without an accumulator) program by program, a second launch bit for
+    bit equal to the first; then each accumulating program's outputs to
+    Gate E over ``LONG_SUMS``."""
+    from repro_torch.core import ALL_PROGRAMS, compile_program
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.kernels.stencil2d import kernel as k1
+
+    t0 = time.perf_counter()
+
+    def references(n, dims):
+        arrs = bench.make_inputs(n, plans[n], dims, 7, dev, bf16=True)
+        plain, exact = (compile_program(ALL_PROGRAMS[n](),
+                                        backend="interp_torch", dtype=dt,
+                                        device=dev).fn(**arrs)
+                        for dt in (torch.bfloat16, torch.float64))
+        return arrs, plain, exact
+
+    for n, b in sorted(ALL_PROGRAMS.items()):
+        has_acc = any(c.accs for c in plans[n].calls)
+        arrs, plain, exact = references(n, CONFORMANCE_DIMS)
+        runs = [{"chunk": SMALL_CHUNK}, {"chunk": None}]
+        if any(k1.layout(c).planar for c in plans[n].calls if c.has_grid):
+            runs[1:1] = [{"chunk": SMALL_CHUNK,
+                          "plane_chunk": SMALL_PLANE_CHUNK},
+                         {"chunk": 1, "plane_chunk": 1}]
+        line = []
+        for opts in runs:
+            tag = f"conformance/bf16/{n}/{opts}"
+            gen = compile_program(b(), backend="cuda", device=dev,
+                                  dtype=torch.bfloat16, **opts)
+            got, records = bench.capture(lambda: gen.fn(**arrs))
+            again = gen.fn(**arrs)
+            for k, v in got.items():
+                if v.dtype != torch.bfloat16:
+                    raise AssertionError(f"{tag}:{k}: dtype {v.dtype}")
+                if not torch.equal(v, again[k]):
+                    raise AssertionError(f"{tag}:{k}: differs between two "
+                                         f"launches")
+            mine, theirs = call_gates(records, tag)
+            line.append(f"{opts}: calls {mine:.2e}/{theirs:.2e}")
+            if not has_acc:
+                errs = gate_e(got, plain, exact, tag)
+                gate_r(got, plain, tag)
+                line[-1] += (" program " + " ".join(
+                    f"{m:.2e}/{t:.2e}" for m, t in errs.values()))
+        if has_acc:
+            arrs, plain, exact = references(n, LONG_SUMS)
+            got = compile_program(b(), backend="cuda", device=dev,
+                                  dtype=torch.bfloat16).fn(**arrs)
+            for k, e in exact.items():
+                if not float(e.double().norm()) > 0:
+                    raise AssertionError(f"conformance/bf16/{n}/long:{k}: "
+                                         f"the exact value is zero")
+            errs = gate_e(got, plain, exact, f"conformance/bf16/{n}/long")
+            line.append(f"program over {LONG_SUMS}: " + " ".join(
+                f"{m:.2e}/{t:.2e}" for m, t in errs.values()))
+        print(f"conformance bf16 {n:22s} rel_l2 to the exact value, K1/"
+              f"interp_torch bf16 (Gate E{'' if has_acc else ' and R'}): "
+              + "  ".join(line), flush=True)
+    print(f"bf16 conformance: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main_dims(n: str, kplan) -> dict:
@@ -556,6 +775,66 @@ def compile_program_plain(prog):
                            device="cpu").kernel_plan
 
 
+def bf16_entry_points(plans: dict, dev) -> None:
+    """Phase 4b's bf16 checks: ``"auto"`` in bf16 on the card takes K1
+    (``BF16_AUTO``) and gives the bits of ``backend="cuda"``;
+    ``compile_batched`` in bf16 through K1 at B = 4 gives each example's
+    single-call bits."""
+    from repro_torch.core import (ALL_PROGRAMS, Generated, compile_batched,
+                                  compile_program)
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.kernels.stencil2d import kernel as k1
+
+    for n in BF16_AUTO:
+        arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev,
+                                 bf16=True)
+        gen = compile_program(ALL_PROGRAMS[n](), dtype=torch.bfloat16)
+        route = "torch" if isinstance(gen, Generated) else gen.interpreter
+        if route != "cuda":
+            raise AssertionError(f"auto/bf16/{n}: took {route!r}, not "
+                                 f"'cuda'")
+        k1.launches = 0
+        got = gen.fn(**arrs)
+        torch.cuda.synchronize()
+        if k1.launches == 0:
+            raise AssertionError(f"auto/bf16/{n}: no K1 launch")
+        launches = k1.launches
+        want = compile_program(ALL_PROGRAMS[n](), backend="cuda",
+                               dtype=torch.bfloat16).fn(**arrs)
+        for k in want:
+            if got[k].dtype != torch.bfloat16 or not torch.equal(got[k],
+                                                                 want[k]):
+                raise AssertionError(f"auto/bf16/{n}:{k}: differs from "
+                                     f"backend='cuda'")
+        print(f"auto bf16 {n:17s} route={route}  K1 launches={launches}  "
+              f"bit-identical to backend='cuda'", flush=True)
+
+    # compile_batched, against single calls
+    n, dims = BATCHED_PATH[0]
+    examples = [bench.make_inputs(n, plans[n], dims, 20 + b, dev, bf16=True)
+                for b in range(BATCH)]
+    batch = {k: torch.stack([e[k] for e in examples]) for k in examples[0]}
+    bgen = compile_batched(ALL_PROGRAMS[n](), "cuda", dtype=torch.bfloat16)
+    single = compile_program(ALL_PROGRAMS[n](), backend="cuda",
+                             dtype=torch.bfloat16)
+    k1.launches = 0
+    out = bgen.fn(batch)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    if launches == 0:
+        raise AssertionError(f"batched/bf16/{n}: no K1 launch")
+    for b, ex in enumerate(examples):
+        want = single.fn(**ex)
+        for k in want:
+            if out[k].dtype != torch.bfloat16 or not torch.equal(out[k][b],
+                                                                 want[k]):
+                raise AssertionError(f"batched/bf16/{n}:{k}[{b}]: differs "
+                                     f"from a single call")
+    print(f"batched bf16 {n} {'x'.join(map(str, (BATCH, *dims.values())))}:"
+          f" launches={launches}  bit-identical to {BATCH} single calls",
+          flush=True)
+
+
 def compiler_phase(dev, flush, rate: float, smi: str) -> list:
     """Phase 4b: the compiler's entry points and PlanServe on the card —
     ``"auto"``'s routes, the fused-source emitter, LayoutApply on the
@@ -611,6 +890,9 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
               f"dim_sizes {sizes}: route={routes[1]}  K1 launches="
               f"{k1.launches}  K1 region a block={smem} B (shared memory "
               f"holds {SMEM_LIMIT})", flush=True)
+
+    # 1b. bf16 through "auto" and compile_batched
+    bf16_entry_points(plans, dev)
 
     # 2. the fused-source emitter: all 15 programs against interp_torch
     # on the card, then the split programs timed against K1
@@ -2499,31 +2781,32 @@ def mesh_roofline(cfg, params, opt, step, batch, step_ms: float,
 
 
 def mesh_dryrun() -> None:
-    """11d. The dry run's gate cell, host-only, in a subprocess."""
+    """11d. The dry run's cells (``DRYRUN_CELLS``), host-only, each in a
+    subprocess."""
     import os
     import subprocess
 
-    arch, shape = DRYRUN_CELL
     out = ROOT / "build" / "repro_torch" / "dryrun"
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out)],
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
-             "CUDA_VISIBLE_DEVICES": ""},
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if "dry-run complete: 1 ok" not in r.stdout:
-        raise AssertionError(f"dry run: {r.stdout[-2000:]}"
-                             f"{r.stderr[-3000:]}")
-    rec = json.loads((out / f"{arch}__{shape}__16x16.json").read_text())
-    print(f"mesh dryrun {arch} x {shape} on the 16x16 mesh ({rec['n_chips']}"
-          f" fake ranks, meta tensors): status {rec['status']}  "
-          f"flops_per_device={rec['flops_per_device']:.4e} "
-          f"bytes_per_device={rec['bytes_per_device']:.4e} "
-          f"coll_bytes_per_device={rec['coll_bytes_per_device']:.4e} "
-          f"bottleneck={rec['bottleneck']} memory (estimate) "
-          f"{rec['memory_stats']}  {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                 "CUDA_VISIBLE_DEVICES": ""},
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if "dry-run complete: 1 ok" not in r.stdout:
+            raise AssertionError(f"dry run {arch} x {shape}: "
+                                 f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+        rec = json.loads((out / f"{arch}__{shape}__16x16.json").read_text())
+        print(f"mesh dryrun {arch} x {shape} on the 16x16 mesh "
+              f"({rec['n_chips']} fake ranks, meta tensors): status "
+              f"{rec['status']}  flops_per_device="
+              f"{rec['flops_per_device']:.4e} bytes_per_device="
+              f"{rec['bytes_per_device']:.4e} coll_bytes_per_device="
+              f"{rec['coll_bytes_per_device']:.4e} bottleneck="
+              f"{rec['bottleneck']} memory (estimate) {rec['memory_stats']}"
+              f"  {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def mesh_phase(dev, smi: str) -> None:
@@ -2606,10 +2889,11 @@ def main() -> int:
              for n, b in sorted(ALL_PROGRAMS.items())}
     calls = [c for kp in plans.values() for c in kp.calls if c.has_grid]
     t0 = time.perf_counter()
-    _, built = build.build([*(k1.job(c) for c in calls), k2.job(), k3.job(),
-                            k4.job()])
-    print(f"build: {len(calls)} stencil calls + flash attention + flash "
-          f"decode + ssd, {built} sources compiled in "
+    _, built = build.build([*(k1.job(c) for c in calls),
+                            *(k1.job(c, torch.bfloat16) for c in calls),
+                            k2.job(), k3.job(), k4.job()])
+    print(f"build: {len(calls)} stencil calls in float32 and in bf16 + "
+          f"flash attention + flash decode + ssd, {built} sources compiled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     hmma = {}
     for tag, kjob in (("K2", k2.job()), ("K4", k4.job())):
@@ -2621,7 +2905,8 @@ def main() -> int:
             raise AssertionError(f"{tag}'s library has no tensor-core "
                                  f"instruction")
     heat = next(c for c in plans["heat3d"].calls if c.has_grid)
-    for tag, kjob in (("K4", k4.job()), ("K1 heat3d", k1.job(heat))):
+    for tag, kjob in (("K4", k4.job()), ("K1 heat3d", k1.job(heat)),
+                      ("K1 heat3d bf16", k1.job(heat, torch.bfloat16))):
         print(f"build: {tag} resources (cuobjdump -res-usage):\n"
               f"{build.resource_usage(kjob)}", flush=True)
 
@@ -2647,10 +2932,17 @@ def main() -> int:
               + "  ".join(f"{o}: {e:.3e}" for o, e in zip(runs, errs)),
               flush=True)
 
-    # 4. the main path at real size, then the plane-window calls
+    # 3b. the same in bf16: Gates E and R, call by call and program by
+    # program; the accumulating programs over long sums
+    bf16_conformance(plans, dev)
+
+    # 4. the main path at real size, then the plane-window calls, then
+    # the bf16 main path
     flush = bench.l2_flusher(dev)
     entries = [drive(n, dims, dev, flush, rate, smi)
                for n, dims in bench.MAIN_PATH + bench.PLANE_WINDOW_PATH]
+    entries += [drive(n, dims, dev, flush, rate, smi, torch.bfloat16)
+                for n, dims in BF16_PATH]
 
     # 4b. the compiler's entry points and PlanServe, through K1
     entries += compiler_phase(dev, flush, rate, smi)

@@ -227,10 +227,12 @@ def pallas_auto_viable(plan: StoragePlan,
     return _split_viable(plan.schedule.program.name, interpreter)
 
 
-def smem_report(kplan: KernelPlan, sizes: dict) -> dict:
+def smem_report(kplan: KernelPlan, sizes: dict,
+                dtype=torch.float32) -> dict:
     """``{call name: bytes}``: the per-block region (windows, locals,
     accumulators, plane windows of a row tile, ring) of the CUDA stencil
-    kernel's own launch at ``sizes`` (``{size symbol: int}``), for every
+    kernel's own launch in ``dtype`` at ``sizes`` (``{size symbol:
+    int}``), for every
     grid call whose sizes resolve.  The launch is chosen as
     :meth:`~repro_torch.kernels.stencil2d.emit.CallLayout.concretize`
     chooses it on an H100, which prefers tiles whose region fits shared
@@ -246,7 +248,7 @@ def smem_report(kplan: KernelPlan, sizes: dict) -> dict:
         resolved = _call_sizes(kplan, call, sizes)
         if resolved is None:
             continue
-        lay = CallLayout(call)
+        lay = CallLayout(call, dtype)
         run = lay.concretize(tuple(resolved), 1)
         out[call.name] = 4 * run.ints[lay.int_names.index("fast_floats")]
     return out
@@ -679,7 +681,8 @@ def explain(program: Program, *, dtype=torch.float32, device=None,
             if dim_sizes:
                 from ..kernels.stencil2d.emit import SMEM_LIMIT
                 for name, nbytes in smem_report(gen.kernel_plan,
-                                                dict(dim_sizes)).items():
+                                                dict(dim_sizes),
+                                                dtype).items():
                     where = ("shared memory" if nbytes <= SMEM_LIMIT
                              else "global scratch")
                     lines.append(f"  {name}: {nbytes} B a block, in "

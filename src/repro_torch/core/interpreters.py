@@ -23,7 +23,7 @@ Pallas kernel — row outputs ``(*grid, steps_j, ni)``, carried
 accumulators ``(1, width)``, kept-prefix accumulators
 ``(*grid[:n_kept], width)`` — because the host half here
 (:func:`execute_plan`: size resolution through axiom shape contracts,
-environment threading, and the :func:`_assemble` trim/seat/lane-reduce
+environment threading, and the :func:`assemble` trim/seat/lane-reduce
 rules) is shared by every interpreter verbatim.
 
 Capability or dtype mismatches raise the typed :class:`PlanUnsupported`
@@ -341,14 +341,19 @@ def _seated(shape, seat, part) -> torch.Tensor:
     return res
 
 
-def _assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
-              n_outs: tuple[int, ...]):
+def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
+             n_outs: tuple[int, ...], *, lanes: bool = False):
     """Map one padded device output back to its environment array: trim
     warm-up/drain rows and tiles, re-seat goal origins, lane-reduce
-    accumulators whose vector dim was folded."""
+    accumulators whose vector dim was folded.  ``lanes=True`` stops
+    before the lane reduction (and its seat): an accumulator's trimmed
+    rows as the interpreter wrote them, which is how a kernel is held
+    against its plain version call by call."""
     n_out = call.n_outer
     reduce_fn = call.fns[out.reduce_idx] if out.reduce_idx is not None \
         else None
+    if lanes:
+        reduce_fn = None
     if out.kind == "acc":
         if out.n_kept:
             # (*kept grid tiles, width): one combined row per kept tile
@@ -376,6 +381,8 @@ def _assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
         # one identity-padded partial-accumulator row per grid step:
         # trim, fold the lanes, seat at the goal origin
         part = padded[otrim + (slice(t0, t0 + nrows), slice(None))]
+        if lanes:
+            return part
         vals = lane_reduce(reduce_fn, torch.movedim(part, -1, 0),
                            out.reduce_init)
         return _seated((*n_outs, nj), _outer_seat(out, n_outs, n_out)
@@ -460,7 +467,7 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
                 if not isinstance(padded, (list, tuple)):
                     padded = [padded]
                 for out, pout in zip(cp.outputs, padded):
-                    env[out.name] = _assemble(cp, out, pout, nj, ni, n_outs)
+                    env[out.name] = assemble(cp, out, pout, nj, ni, n_outs)
             for hs in cp.host_post:
                 _run_host(cp, hs, env)
         for p in kplan.post_passes:

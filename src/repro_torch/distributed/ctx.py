@@ -97,6 +97,79 @@ def _grad_as_forward(y):
     return y.redistribute(y.device_mesh, y.placements)
 
 
+#: The layout changes :func:`flat_ready` and :func:`tied` have made in
+#: this process (descriptions), for the dry run's record.
+LAYOUT_CHANGES: set = set()
+_REFUSES: dict[tuple, bool] = {}
+
+
+def refuses(op: str, mesh) -> bool:
+    """Whether the installed DTensor refuses ``op`` over ``mesh``:
+    ``"flatten"``, a view that flattens a dim sharded behind the first
+    of its group (torch 2.11 raises; 2.13 shards the result strided), or
+    ``"add"``, adding a tied weight's two gradients, one sharded over the
+    first axis of more than one rank (the embedding's), the other partial
+    sums there and sharded over the next (the head's): torch 2.11 turns
+    the shard into partial sums, "not supported yet"; 2.13
+    reduce-scatters the sums.  Found once per mesh shape, by trying it on
+    empty meta DTensors; False on a mesh with no axis of more than one
+    rank."""
+    axes = [i for i in range(mesh.ndim) if mesh.size(i) > 1][:2]
+    key = (op, tuple(mesh.size(i) for i in range(mesh.ndim)))
+    if not axes:
+        return False
+    if key not in _REFUSES:
+        n = math.prod(mesh.size(i) for i in axes)
+
+        def meta(pairs):  # (2, n), placed as ``pairs`` (axis, placement)
+            place = [Replicate()] * mesh.ndim
+            local = [2, n]
+            for i, p in pairs:
+                place[i] = p
+                if p.is_shard():
+                    local[p.dim] //= mesh.size(i)
+            return DTensor.from_local(torch.empty(local, device="meta"),
+                                      mesh, place, run_check=False,
+                                      shape=(2, n), stride=(n, 1))
+        try:
+            if op == "flatten":
+                meta([(axes[0], Shard(1))]).view(-1)
+            else:
+                a = meta([(axes[0], Shard(1))])
+                b = meta([(axes[0], Partial())]
+                         + [(i, Shard(1)) for i in axes[1:]])
+                a + b
+                b + a
+            _REFUSES[key] = False
+        except RuntimeError:
+            _REFUSES[key] = True
+    return _REFUSES[key]
+
+
+def tied(w):
+    """``w``, a second use of a tied weight (the LM head read from the
+    embedding table), whose gradient comes back in ``w``'s own layout
+    and so adds to the first use's with no redistribution, where the
+    installed DTensor cannot turn the first use's shard into the
+    second's partial sums (:func:`refuses`), which adding them may take.
+    ``w`` itself without a mesh, when it is not a DTensor, when no
+    gradient is taken, or where DTensor can."""
+    mesh = active_mesh()
+    if mesh is None or not isinstance(w, DTensor) \
+            or not (torch.is_grad_enabled() and w.requires_grad) \
+            or not refuses("add", mesh):
+        return w
+    y = _grad_as_forward(w)
+
+    def note(grad):
+        if tuple(grad.placements) != tuple(w.placements):
+            LAYOUT_CHANGES.add(
+                f"the tied LM head's gradient laid out as the embedding "
+                f"({tuple(grad.placements)} -> {tuple(w.placements)})")
+    y.register_hook(note)
+    return y
+
+
 def split_dim(x, dim: int, n: int):
     """``x`` with dim ``dim`` viewed as (n, size // n): heads out of a
     projection's last dim, GQA groups out of the heads.  Under a mesh
@@ -110,6 +183,27 @@ def split_dim(x, dim: int, n: int):
         if n % k:
             x = whole(x, d)
     return x.unflatten(d, (n, -1))
+
+
+def flat_ready(x, *groups, what: str):
+    """``x`` laid out so that an op may flatten each group of its dims
+    into one (``groups``: tuples of tensor dims, in the order the op
+    flattens them), where the installed DTensor refuses to flatten a dim
+    sharded behind the first of its group (:func:`refuses`): such a dim
+    is made whole, and ``what`` is recorded in :data:`LAYOUT_CHANGES`.
+    ``x`` itself without a mesh, when it is not a DTensor, where DTensor
+    can, or when no such dim is sharded."""
+    mesh = active_mesh()
+    if mesh is None or not isinstance(x, DTensor) \
+            or not refuses("flatten", mesh):
+        return x
+    behind = {d % x.ndim for grp in groups for d in grp[1:]}
+    if not any(p.is_shard() and p.dim in behind for p in x.placements):
+        return x
+    LAYOUT_CHANGES.add(what)
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard() and p.dim in behind else p
+        for p in x.placements])
 
 
 def merge_last(x):

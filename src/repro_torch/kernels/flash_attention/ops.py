@@ -16,9 +16,14 @@ from __future__ import annotations
 
 import torch
 
-from ...distributed.ctx import split_dim
+from ...distributed.ctx import flat_ready, split_dim
 from .kernel import NEG_INF, flash_attention_fwd
 from .ref import dense_attention
+
+
+_HEADS_WHOLE = ("chunked attention's operands with their heads (or group "
+                "or query rows) whole where they were sharded behind the "
+                "batch dim, which torch 2.11's DTensor cannot flatten")
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,7 +40,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     C = min(chunk, Skv)
     while C > 1 and Skv % C:
         C //= 2
-    qs = split_dim(q.float() * scale, 2, KVH)  # (B, Sq, KVH, group, D)
+    # (B, Sq, KVH, group, D); einsum flattens (b, h) and (g, q) of the
+    # scores' operands, (b, h) and (g, q) of p, (b, h) of k and v
+    qs = flat_ready(split_dim(q.float() * scale, 2, KVH), (0, 2), (3, 1),
+                    what=_HEADS_WHOLE)
     if qpos is None:
         q_off = q_offset if q_offset is not None else Skv - Sq
         qpos = torch.arange(Sq, device=q.device)[None, :] + q_off
@@ -44,8 +52,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.zeros((B, KVH, group, Sq), device=q.device)
     acc = torch.zeros((B, KVH, group, Sq, D), device=q.device)
     for c0 in range(0, Skv, C):
-        kc = k[:, c0:c0 + C].float()
-        vc = v[:, c0:c0 + C].float()
+        kc = flat_ready(k[:, c0:c0 + C].float(), (0, 2), what=_HEADS_WHOLE)
+        vc = flat_ready(v[:, c0:c0 + C].float(), (0, 2), what=_HEADS_WHOLE)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kc)
         kpos = c0 + torch.arange(C, device=q.device)
         mask = torch.ones((1, Sq, C), dtype=torch.bool, device=q.device)
@@ -60,6 +68,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - mc)
         p = torch.exp(s - mc[..., None])
         l = l * alpha + p.sum(-1)
+        p = flat_ready(p, (0, 1), (2, 3), what=_HEADS_WHOLE)
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
                                                     vc)
         m = mc

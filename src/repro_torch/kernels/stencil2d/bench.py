@@ -55,10 +55,13 @@ def hbm_rate(name: str) -> float:
     raise RuntimeError(f"no memory rate known for {name!r}")
 
 
-def make_inputs(name: str, kplan, dims: dict, seed: int, device) -> dict:
+def make_inputs(name: str, kplan, dims: dict, seed: int, device,
+                bf16: bool = False) -> dict:
     """One seeded float32 array per axiom of ``kplan``, shaped by its
     extents at ``dims`` (loop dim -> size); hydro1d's density is kept
-    positive as in the repository's hydro benchmark."""
+    positive as in the repository's hydro benchmark.  ``bf16=True``
+    rounds each value to bf16 (kept float32, each value exact in both,
+    so a float64 run of the same inputs gives the exact value)."""
     rng = np.random.default_rng(seed)
     sizes = {sym: dims[d] for d, sym in kplan.dim_sizes}
     out = {}
@@ -68,7 +71,8 @@ def make_inputs(name: str, kplan, dims: dict, seed: int, device) -> dict:
         a = rng.standard_normal(shape, dtype=np.float32)
         if name == "hydro1d" and ax.array == "rho":
             a = a * a + 1.0
-        out[ax.array] = torch.from_numpy(a).to(device)
+        t = torch.from_numpy(a)
+        out[ax.array] = (t.bfloat16().float() if bf16 else t).to(device)
     return out
 
 
@@ -138,18 +142,20 @@ def capture(fn):
 
 
 def call_bytes(lay, run, args) -> int:
-    """Bytes one call must move (float32): each input read once, each
-    output written once in the reference contract's shape -- row outputs
-    ``(*grid, steps_j, Ni)``, accumulators ``(*grid[:n_kept], w)``, not
-    the kernel's per-chunk partial rows."""
-    floats = sum(t.numel() for t in args)
+    """Bytes one call must move: each input read once (its own element
+    size), each output written once in the reference contract's shape
+    and the call's element type -- row outputs ``(*grid, steps_j, Ni)``,
+    accumulators ``(*grid[:n_kept], w)``, not the kernel's per-chunk
+    partial rows."""
+    out = 0
     for o in lay.call.outputs:
         if o.acc is None:
-            floats += math.prod(run.gsz) * run.steps_j * run.ni
+            out += math.prod(run.gsz) * run.steps_j * run.ni
         else:
             a = next(a for a in lay.call.accs if a.name == o.acc)
-            floats += math.prod(run.gsz[:a.n_kept]) * (run.ni + a.w_off)
-    return 4 * floats
+            out += math.prod(run.gsz[:a.n_kept]) * (run.ni + a.w_off)
+    return sum(t.numel() * t.element_size() for t in args) \
+        + lay.itemsize * out
 
 
 def kernel_ms(record, flush) -> float:

@@ -18,8 +18,8 @@
 // in and come out in the fragment layouts of the PTX ISA, so a kernel's
 // fragment indexing is tested as written.
 //
-// cp.async is deferred, as on the card: a copy (16 bytes, zero-filled
-// past the source size, or 4 bytes) fills its destination with NaNs when
+// cp.async is deferred, as on the card: a copy (16 or 4 bytes, zero-filled
+// past the source size) fills its destination with NaNs when
 // it is issued -- the bytes are in flight and undefined -- and is queued
 // in the thread's open group; commit closes the group, and wait_group N
 // performs the thread's oldest groups until at most N are pending.  So a
@@ -61,6 +61,9 @@ inline std::barrier<>* hfav_block_barrier = nullptr;
 // the block's dynamic shared memory (the emitted kernels declare it
 // `extern __shared__ float hfav_smem[]`)
 alignas(16) float hfav_smem[232448 / sizeof(float)];
+// the NaN that fills what is undefined: a float NaN whose two halves are
+// bf16 NaNs too, so a bf16 element read before it is written shows
+inline constexpr unsigned hfav_nan_bits = 0x7fc07fc0u;
 
 inline void __syncthreads() { hfav_block_barrier->arrive_and_wait(); }
 
@@ -108,8 +111,9 @@ struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
 
-// bfloat16 as the card stores it (the high half of a float), with the
-// conversions of cuda_bf16.h; float -> bf16 rounds to nearest even.
+// bfloat16 as the card stores it (16 bits: the high half of a float),
+// with the conversions of cuda_bf16.h; float -> bf16 rounds to nearest
+// even (an overflow to Inf, Inf and NaN kept).
 struct __nv_bfloat16 {
   unsigned short x;
 };
@@ -129,6 +133,8 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {static_cast<unsigned short>(u >> 16)};
 }
+
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 
 inline const char* cudaGetErrorString(int) { return "emulated launch"; }
 #define cudaError_t int
@@ -287,9 +293,8 @@ inline thread_local std::deque<std::vector<hfav_copy>> hfav_groups;
 
 inline void hfav_cp_async(void* dst, const void* src, int bytes,
                           int src_bytes) {
-  const float nan = __int_as_float(0x7fc00000u);
-  for (int b = 0; b < bytes; b += 4) std::memcpy(static_cast<char*>(dst) + b,
-                                                 &nan, 4);
+  for (int b = 0; b < bytes; b += 4)
+    std::memcpy(static_cast<char*>(dst) + b, &hfav_nan_bits, 4);
   hfav_open_group.push_back({dst, src, bytes, src_bytes});
 }
 
@@ -344,7 +349,7 @@ int emulate_launch(Kernel kernel, const Params& prm, long long nblocks,
     // a block finds no value of an earlier block in shared memory: every
     // word starts as a NaN, so a read before a write shows in the result
     std::fill(std::begin(hfav_smem), std::end(hfav_smem),
-              __int_as_float(0x7fc00000u));
+              __int_as_float(hfav_nan_bits));
     std::barrier<> bar(threads);
     hfav_block_barrier = &bar;
     std::deque<std::barrier<>> warps;

@@ -59,11 +59,26 @@
 // steps read again what a neighbouring block reads.  The ring keeps RING
 // row steps of input copies in flight behind the compute, so a row step
 // does not wait a full memory latency.
+//
+// Element types.  The inputs, outputs and windows (rolling rows, plane
+// windows, the ring's copies) hold the call's element type, float or bf16
+// (__nv_bfloat16): where the Pallas kernel stores in its dtype.  The
+// arithmetic runs in float registers, and the locals that live in shared
+// memory, the accumulator rows, their per-block partial rows and the
+// device fold stay float: a bf16 result is rounded once, when the folded
+// row is written.  The Pallas kernel keeps a bf16 accumulator row and
+// rounds it at every row's combine, so a long sum stagnates
+// (normalization at 4096 x 2048 computed so is 42 % off the exact value
+// in relative L2, this kernel 0.18 %); no kernel whose blocks run in
+// parallel could repeat that order.  A bf16 row that starts or ends between two 4-byte words
+// takes its odd element with the element before it or with two bytes of
+// zeros after it (cp.async copies 4, 8 or 16 bytes).
 #pragma once
 
 #ifdef HFAV_EMULATE
 #include "emulate.h"
 #else
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #endif
 #include <math.h>
@@ -72,13 +87,24 @@
 namespace hfav {
 
 // Kernel parameters: the device pointers (inputs, outputs, the global
-// scratch) and the runtime sizes, both in an order the emitter fixes per
-// CallPlan.
-template <int NP, int ND>
+// scratch, the fold's tickets) and the runtime sizes, both in an order the
+// emitter fixes per CallPlan.  The pointers are typed by the inputs' and
+// outputs' element type T; the kernel casts the scratch's and tickets'.
+template <int NP, int ND, typename T = float>
 struct Params {
-  float* p[NP];
+  T* p[NP];
   long long d[ND];
 };
+
+// A float as element type T (bf16 rounds to nearest even).
+template <typename T>
+__device__ __forceinline__ T from_float(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Floor-mod slot rotation: robust to the negative positions of pipeline
 // priming, where C's % would give a negative slot.  32-bit: a block's
@@ -114,12 +140,23 @@ __device__ __forceinline__ int shift4(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
+// The same for bf16 rows: 8 elements a 16-byte piece.
+__host__ __device__ __forceinline__ long long cap8(long long n) {
+  return (n + 14) / 8 * 8;
+}
+__device__ __forceinline__ int shift8(const __nv_bfloat16* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
+}
+
 #ifdef HFAV_EMULATE
 inline void cp_async16(float* dst, const float* src) {
   hfav_cp_async16(dst, src, 16);
 }
 inline void cp_async4(float* dst, const float* src) {
   hfav_cp_async4(dst, src);
+}
+inline void cp_async2(void* dst, const void* src) {
+  hfav_cp_async(dst, src, 4, 2);
 }
 inline void commit() { hfav_cp_async_commit(); }
 inline void wait_ring_n(int n) { hfav_cp_async_wait(n); }
@@ -139,6 +176,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
+               : "memory");
+}
+// 2 bytes from device to shared memory and 2 bytes of zeros after them
+// (a 4-byte copy that reads 2: both addresses 4-byte aligned)
+__device__ __forceinline__ void cp_async2(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(2)
                : "memory");
 }
 __device__ __forceinline__ void commit() {
@@ -186,12 +231,47 @@ __device__ __forceinline__ void issue_row(float* __restrict__ dst,
   }
 }
 
+// The same for a bf16 row, as 4-byte words: a row that starts between
+// two words copies the element before it too when that lies in the tensor
+// starting at `lo` (into the window row's margin), else its first element
+// by a plain load and store, which the ring's wait and barrier order as
+// they order the copies; a row that ends between two words copies its
+// last element and 2 bytes of zeros (into the margin).  No copy reads
+// outside the tensor.
+__device__ __forceinline__ void issue_row(__nv_bfloat16* __restrict__ dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          int n, long long use_smem,
+                                          const __nv_bfloat16* lo) {
+  if (!use_smem) {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) dst[c] = __ldg(src + c);
+    return;
+  }
+  if (n > 0 && (reinterpret_cast<uintptr_t>(src) & 2)) {
+    if (src > lo) {
+      --src;
+      --dst;
+      ++n;
+    } else {
+      if (threadIdx.x == 0) *dst = *src;
+      ++src;
+      ++dst;
+      --n;
+    }
+  }
+  issue_row(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src),
+            n >> 1, use_smem);
+  if ((n & 1) && threadIdx.x == blockDim.x - 1)
+    cp_async2(dst + n - 1, src + n - 1);
+}
+
 // Fill the columns of an n-wide row outside [lo, hi) with v (the
 // identity-filled margins of an output row).
-__device__ __forceinline__ void fill_outside(float* __restrict__ row, int n,
+template <typename T>
+__device__ __forceinline__ void fill_outside(T* __restrict__ row, int n,
                                              int lo, int hi, float v) {
-  for (int c = threadIdx.x; c < lo; c += blockDim.x) row[c] = v;
-  for (int c = hi + threadIdx.x; c < n; c += blockDim.x) row[c] = v;
+  const T t = from_float<T>(v);
+  for (int c = threadIdx.x; c < lo; c += blockDim.x) row[c] = t;
+  for (int c = hi + threadIdx.x; c < n; c += blockDim.x) row[c] = t;
 }
 
 // Set an n-wide row to v.
@@ -260,14 +340,15 @@ __device__ __forceinline__ float fold_tree(const float* __restrict__ src,
 }
 
 // Fold `n` rows of `w` floats (row i at src + i * ld) into the row `out`
-// in lane_reduce's order, four levels a pass: each (position, column)
+// (of element type O: the one rounding of a bf16 accumulator) in
+// lane_reduce's order, four levels a pass: each (position, column)
 // item of a pass is a thread's, combining up to 16 rows; the passes
 // between write `tmp` (ceil(n / 16) + ceil(n / 256) rows, in turn; none
 // for n <= 16).  Run by one whole block (no inlining: its registers stay
 // out of the row step's).
-template <typename Fn>
+template <typename Fn, typename O>
 __device__ __noinline__ void fold_rows(const float* src, long long ld, int n,
-                                       float* tmp, float* out, int w,
+                                       float* tmp, O* out, int w,
                                        float ident, Fn fn) {
   float* const bufs[2] = {tmp, tmp + ((n + 15) / 16) * w};
   int b = 0;
@@ -277,11 +358,13 @@ __device__ __noinline__ void fold_rows(const float* src, long long ld, int n,
       m = (m + 1) / 2;
       ++levels;
     }
-    float* const dst = m == 1 ? out : bufs[b];
     for (int it = threadIdx.x; it < m * w; it += blockDim.x) {
       const int c = it % w, pos = it / w;
-      dst[static_cast<long long>(pos) * w + c] =
-          fold_tree<4>(src + c, ld, n, levels, pos, ident, fn);
+      const float v = fold_tree<4>(src + c, ld, n, levels, pos, ident, fn);
+      if (m == 1)
+        out[c] = from_float<O>(v);
+      else
+        bufs[b][static_cast<long long>(pos) * w + c] = v;
     }
     __syncthreads();
     if (m == 1) return;
@@ -319,12 +402,12 @@ __device__ __forceinline__ float* fast_scratch(float* smem, float* gscratch,
 // Launch one emitted kernel: sets the dynamic shared-memory limit when a
 // launch needs more than the default 48 KB, launches on the caller's
 // stream, and returns cudaGetLastError() (0 when the launch was taken).
-template <int NP, int ND, typename Kernel>
-int launch(Kernel kernel, void** ptrs, const long long* ints,
-           long long nblocks, int threads, long long smem_bytes,
-           void* stream) {
-  Params<NP, ND> prm;
-  for (int i = 0; i < NP; ++i) prm.p[i] = static_cast<float*>(ptrs[i]);
+template <int NP, int ND, typename T>
+int launch(void (*kernel)(Params<NP, ND, T>), void** ptrs,
+           const long long* ints, long long nblocks, int threads,
+           long long smem_bytes, void* stream) {
+  Params<NP, ND, T> prm;
+  for (int i = 0; i < NP; ++i) prm.p[i] = static_cast<T*>(ptrs[i]);
   for (int i = 0; i < ND; ++i) prm.d[i] = ints[i];
 #ifdef HFAV_EMULATE
   return emulate_launch(kernel, prm, nblocks, threads, smem_bytes);

@@ -36,7 +36,9 @@ tracer:
   blocks an SM holds of the built kernel.
 
 Sizes are runtime parameters, so one source (and one build) serves
-every problem size of a plan.
+every problem size of a plan.  The element type is not: a call's source
+is emitted for float32 or bf16 (:data:`ELEMENTS`), its windows and rows
+in that type, its arithmetic, locals and accumulators in float.
 """
 from __future__ import annotations
 
@@ -56,6 +58,21 @@ COLS_PER_THREAD = 4
 SMEM_LIMIT = 232448
 #: The SMs of an H100 (the default when the device is not known).
 H100_SMS = 132
+#: The element types the kernel stores, by torch dtype name: (C type,
+#: bytes).
+ELEMENTS = {"float32": ("float", 4), "bfloat16": ("__nv_bfloat16", 2)}
+
+
+def dtype_name(dtype) -> str:
+    """The :data:`ELEMENTS` key of ``dtype`` (a torch dtype or its
+    name); raises :class:`PlanUnsupported` for a type the kernel does
+    not build for."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in ELEMENTS:
+        raise PlanUnsupported(
+            f"the CUDA stencil kernel builds for "
+            f"{' and '.join(ELEMENTS)}, not {name}")
+    return name
 
 
 class LoweringError(PlanUnsupported):
@@ -330,10 +347,12 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def cap4(n: int) -> int:
-    """Floats a ring window row of ``n`` values takes (``hfav::cap4``):
-    room to start at its source row's address mod 16 bytes."""
-    return (n + 6) // 4 * 4
+def cap4(n: int, itemsize: int = 4) -> int:
+    """Elements a ring window row of ``n`` values of ``itemsize`` bytes
+    takes (``hfav::cap4``, ``hfav::cap8`` for 2 bytes): room to start at
+    its source row's address mod 16 bytes."""
+    per = 16 // itemsize
+    return (n + 2 * per - 2) // per * per
 
 
 @dataclass(frozen=True)
@@ -379,8 +398,11 @@ class CallLayout:
     docstring).  Raises :class:`PlanUnsupported` for calls outside the
     kernel's shape."""
 
-    def __init__(self, call: CallPlan):
+    def __init__(self, call: CallPlan, dtype="float32"):
         self.call = call
+        #: the element type's :data:`ELEMENTS` key and bytes
+        self.dtype = dtype_name(dtype)
+        self.itemsize = ELEMENTS[self.dtype][1]
         n_out = call.n_outer
         self.arr_ins = [i for i in call.inputs if not i.scalar]
         self.row_ins = [i for i in self.arr_ins if not i.plane]
@@ -505,6 +527,15 @@ class CallLayout:
 
     def _floats(self, kind: str, name: str, ni: int, rows: int, ring: int,
                 ring_planes: int) -> int:
+        """4-byte words of one item of the region: locals and
+        accumulators hold floats, shift tables ints, windows elements."""
+        if kind in ("shift", "local", "acc"):
+            return self._elements(kind, name, ni, rows, ring, ring_planes)
+        return -(-self._elements(kind, name, ni, rows, ring, ring_planes)
+                 * self.itemsize // 4)
+
+    def _elements(self, kind: str, name: str, ni: int, rows: int, ring: int,
+                  ring_planes: int) -> int:
         if kind == "shift":
             if name in self.ring_wins:
                 return next(i.stages for i in self.row_ins
@@ -514,7 +545,8 @@ class CallLayout:
         if kind == "win":
             w = next(w for w in self.roll_wins if w.name == name)
             if name in self.ring_wins:
-                return (w.stages + ring) * cap4(ni + w.i_hi - w.i_lo)
+                return (w.stages + ring) * cap4(ni + w.i_hi - w.i_lo,
+                                                self.itemsize)
             return w.stages * (ni + w.i_hi - w.i_lo)
         if kind == "local":
             return ni + self.local_w[name]
@@ -524,7 +556,7 @@ class CallLayout:
         if kind == "plane":
             i = next(i for i in self.plane_ins if i.name == name)
             return (i.p_stages + ring_planes) * rows \
-                * cap4(ni + i.i_hi - i.i_lo)
+                * cap4(ni + i.i_hi - i.i_lo, self.itemsize)
         w = next(w for w in self.plane_wins if w.name == name)
         return w.p_stages * rows * (ni + w.i_hi - w.i_lo)
 
@@ -539,7 +571,8 @@ class CallLayout:
         chunk of ``clen`` (a block walking at most ``planes`` planes):
         the fewest row steps ahead (``RING_MIN`` .. ``RING_MAX``) whose
         copies, over the blocks an SM then holds, reach ``RING_BYTES``."""
-        row = 4 * sum(ni + i.i_hi - i.i_lo for i in self.arr_ins)
+        row = self.itemsize * sum(ni + i.i_hi - i.i_lo
+                                  for i in self.arr_ins)
         for ring in range(RING_MIN, RING_MAX + 1):
             rp = self.ring_planes(steps_j, clen, ring, planes)
             fast = self._region(ni, walk, ring, rp)[0]
@@ -734,9 +767,21 @@ def _lin(dims, sizes) -> str:
     return expr
 
 
-def emit_source(call: CallPlan) -> str:
-    """The CUDA source of ``call``'s kernel (see the module docstring)."""
-    lay = CallLayout(call)
+def emit_source(call: CallPlan, dtype="float32") -> str:
+    """The CUDA source of ``call``'s kernel for element type ``dtype``
+    (see the module docstring).  A bf16 source converts each element it
+    loads to float and rounds each value it stores to a window or an
+    output row; its float32 twin has no conversions."""
+    lay = CallLayout(call, dtype)
+    et = ELEMENTS[lay.dtype][0]
+    bf16 = lay.dtype == "bfloat16"
+    per = 16 // lay.itemsize  # elements a 16-byte piece
+
+    def load(expr: str) -> str:
+        return f"__bfloat162float({expr})" if bf16 else expr
+
+    def store(expr: str) -> str:
+        return f"__float2bfloat16_rn({expr})" if bf16 else expr
     n_out = call.n_outer
     nin = len(call.inputs)
     gs_ptr = nin + len(call.outputs)
@@ -842,7 +887,8 @@ def emit_source(call: CallPlan) -> str:
         w(bodies[k])
         w("")
     w(f"__global__ void __launch_bounds__({MAX_THREADS})")
-    w("hfav_kernel(const hfav::Params<HFAV_NP, HFAV_ND> P) {")
+    w("hfav_kernel(const hfav::Params<HFAV_NP, HFAV_ND"
+      + (f", {et}> P) {{" if bf16 else "> P) {"))
     w("  extern __shared__ __align__(16) float hfav_smem[];")
     for k, name in enumerate(lay.int_names):
         w(f"  const long long {name} = P.d[{k}];")
@@ -854,21 +900,26 @@ def emit_source(call: CallPlan) -> str:
     for d in reversed(lay.indep_dims):
         w(f"  const long long b{d} = blk % g{d};")
         w(f"  blk /= g{d};")
-    w(f"  float* const gscratch = P.p[{gs_ptr}];")
+    w(f"  float* const gscratch = "
+      + (f"reinterpret_cast<float*>(P.p[{gs_ptr}]);" if bf16
+         else f"P.p[{gs_ptr}];"))
     w("  float* const fast = hfav::fast_scratch(hfav_smem, gscratch, "
       "use_smem, fast_floats);")
     for m, key in enumerate(lay.fast):
         if key[0] == "shift":
             w(f"  int* const {fptr[key]} = reinterpret_cast<int*>(fast + "
               f"off_f{m});")
+        elif bf16 and key[0] in ("win", "plane", "pwin"):
+            w(f"  {et}* const {fptr[key]} = reinterpret_cast<{et}*>(fast + "
+              f"off_f{m});")
         else:
             w(f"  float* const {fptr[key]} = fast + off_f{m};")
     for i in call.inputs:
         k = in_idx[i.name]
         if i.scalar:
-            w(f"  const float sc{k} = P.p[{k}][0];")
+            w(f"  const float sc{k} = {load(f'P.p[{k}][0]')};")
         else:
-            w(f"  const int cap{k} = (int)hfav::cap4("
+            w(f"  const int cap{k} = (int)hfav::cap{per}("
               f"{width(i.i_hi - i.i_lo)});")
             if i.plane:
                 w(f"  const int ps{k} = {i.p_stages} + (int)ring_planes;")
@@ -911,8 +962,10 @@ def emit_source(call: CallPlan) -> str:
         src = src_row(i, "f_", f"f_op{last} + ({i.p_lead})" if i.plane
                       else "", f"f_x + ({i.lead})")
         w("    {")
-        w(f"      const float* const src = {src};")
-        w("      const int sh = hfav::shift4(src);")
+        w(f"      const {et}* const src = {src};")
+        w(f"      const int sh = hfav::shift{per}(src);")
+        # a bf16 row may take the element before it, if in the tensor
+        tensor = f", P.p[{k}]" if bf16 else ""
         if i.plane:
             key = ("plane", i.name)
             ih = height(i.j_hi - i.j_lo)
@@ -924,14 +977,14 @@ def emit_source(call: CallPlan) -> str:
             w(f"        if (threadIdx.x == 0) {fptr[('shift', i.name)]}[at] "
               f"= sh;")
             w(f"        hfav::issue_row({fptr[key]} + at * cap{k} + sh, src, "
-              f"(int){iw}, use_smem);")
+              f"(int){iw}, use_smem{tensor});")
             w("      }")
         else:
             w(f"      const int at = ib{k};")
             w(f"      if (threadIdx.x == 0) "
               f"{fptr[('shift', 'in_' + i.name)]}[at] = sh;")
             w(f"      hfav::issue_row({fptr[('win', 'in_' + i.name)]} + "
-              f"at * cap{k} + sh, src, (int){iw}, use_smem);")
+              f"at * cap{k} + sh, src, (int){iw}, use_smem{tensor});")
         w("    }")
     w("  };")
     advance = "".join(f" ib{in_idx[i.name]} = hfav::next(ib{in_idx[i.name]}, "
@@ -998,10 +1051,10 @@ def emit_source(call: CallPlan) -> str:
             # (a slot not filled yet, in the unprimed head of a block's
             # walk, holds no shift: the mask keeps the read in its window)
             at = f"s{si}_at{ri}"
-            return f"{win}[{ptr} + c]", [
+            return load(f"{win}[{ptr} + c]"), [
                 f"const int {at} = {row};",
-                f"const int {ptr} = {at} * cap{k} + ({shf}[{at}] & 3) + "
-                f"({rd.col0 - i.i_lo});"]
+                f"const int {ptr} = {at} * cap{k} + ({shf}[{at}] & "
+                f"{per - 1}) + ({rd.col0 - i.i_lo});"]
         if rd.src in pwin_of:
             pw = pwin_of[rd.src]
             key = ("pwin", pw.name)
@@ -1009,12 +1062,12 @@ def emit_source(call: CallPlan) -> str:
             row = plane_row(key, pslot(key, rd.p_off),
                             f"(int)hfav::clamp(x + ({rd.j_off - pw.j_lo}), 0, "
                             f"{wh} - 1)")
-            return f"{fptr[key]}[{ptr} + c]", [
+            return load(f"{fptr[key]}[{ptr} + c]"), [
                 f"const int {ptr} = {row} * (int){bw} + "
                 f"({rd.col0 - pw.i_lo});"]
         b = roll_of[rd.src]
         bw = width(b.i_hi - b.i_lo)
-        return f"{fptr[('win', b.name)]}[{ptr} + c]", [
+        return load(f"{fptr[('win', b.name)]}[{ptr} + c]"), [
             f"const int {ptr} = hfav::slot(x + ({rd.j_off}), {b.stages}) * "
             f"(int){bw} + ({rd.col0 - b.i_lo});"]
 
@@ -1083,25 +1136,25 @@ def emit_source(call: CallPlan) -> str:
                                 f"&& {seat} < {wh};")
                             row = plane_row(key, pslot(key, pw.p_lead), seat)
                             pre_lines.append(
-                                f"float* const {dst} = {fptr[key]} + {row} * "
+                                f"{et}* const {dst} = {fptr[key]} + {row} * "
                                 f"{bw} + ({step.out_col0 - pw.i_lo});")
                             body.append(f"if (s{si}_ok{vi}_{ti}) {dst}[c] = "
-                                        f"v{vi};")
+                                        f"{store(f'v{vi}')};")
                         elif kind == "buf":
                             b = roll_of[tgt_name]
                             bw = width(b.i_hi - b.i_lo)
                             pre_lines.append(
-                                f"float* const {dst} = "
+                                f"{et}* const {dst} = "
                                 f"{fptr[('win', b.name)]} + hfav::slot(x + "
                                 f"({step.lead}), {b.stages}) * {bw} + "
                                 f"({step.out_col0 - b.i_lo});")
-                            body.append(f"{dst}[c] = v{vi};")
+                            body.append(f"{dst}[c] = {store(f'v{vi}')};")
                         else:
                             oi = int(tgt)
                             outer_lin = _lin([f"o{d}" for d in range(n_out)],
                                              [f"g{d}" for d in range(n_out)])
                             pre_lines.append(
-                                f"float* const {dst} = P.p[{nin + oi}] + "
+                                f"{et}* const {dst} = P.p[{nin + oi}] + "
                                 f"({outer_lin} * steps_j + jid) * ni;")
                             pre_lines.append(
                                 f"if (own) hfav::fill_outside({dst}, (int)ni, "
@@ -1109,7 +1162,7 @@ def emit_source(call: CallPlan) -> str:
                                 f"s{si}_W, "
                                 f"{c_float(call.outputs[oi].fill)});")
                             body.append(f"if (own) {dst}[{step.out_col0} + c]"
-                                        f" = v{vi};")
+                                        f" = {store(f'v{vi}')};")
             loop_lines.append(f"if ({guard}) {{  // step {si}")
             loop_lines += ["  " + b for b in body]
             loop_lines.append("}")

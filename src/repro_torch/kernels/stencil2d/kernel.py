@@ -31,10 +31,18 @@ built kernel (``hfav_occupancy``), so the launch is fixed at the first
 call, after the build.  Each block keeps its input rows a few row steps
 ahead in a ``cp.async`` ring.
 
+Each call builds for float32 or bf16 (one source and library each).  In
+bf16 the inputs, outputs and windows hold bf16, where the reference
+stores in its dtype, and the arithmetic runs in float; unlike the
+reference, the accumulators, their partial rows and the fold stay
+float32 and round once, when the folded row is written (the reference's
+bf16 accumulator row, rounded at every row, makes a long sum stagnate;
+see ``csrc/stencil2d.cuh``).
+
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
-refuses CPU tensors and any dtype but float32; a failed build or launch
-raises.  :data:`launches` counts the launches made.
+refuses CPU tensors and any dtype but float32 and bf16; a failed build
+or launch raises.  :data:`launches` counts the launches made.
 """
 from __future__ import annotations
 
@@ -45,11 +53,11 @@ import threading
 import torch
 
 from ...core.interpreters import (STENCIL_CAPABILITIES, InterpreterSpec,
-                                  PlanUnsupported, register_interpreter,
-                                  require_hazard_free, require_linked_fns)
+                                  register_interpreter, require_hazard_free,
+                                  require_linked_fns)
 from ...core.plan import CallPlan, fn_key
 from .. import build
-from .emit import CallLayout, emit_source
+from .emit import CallLayout, dtype_name, emit_source
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "stencil2d.cuh"
@@ -76,42 +84,43 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hfav_error_string.restype = ctypes.c_char_p
 
 
-def job(call: CallPlan) -> build.Job:
-    """The build job of ``call``'s emitted kernel."""
-    return build.Job(emit_source(call), (HEADER,), CSRC, _bind)
+def job(call: CallPlan, dtype=torch.float32) -> build.Job:
+    """The build job of ``call``'s emitted kernel for ``dtype``."""
+    return build.Job(emit_source(call, dtype), (HEADER,), CSRC, _bind)
 
 
-def _call_key(call: CallPlan):
-    return call, tuple(fn_key(f) for f in call.fns)
+def _call_key(call: CallPlan, dtype):
+    return call, tuple(fn_key(f) for f in call.fns), dtype_name(dtype)
 
 
-def layout(call: CallPlan) -> CallLayout:
+def layout(call: CallPlan, dtype=torch.float32) -> CallLayout:
     """``call``'s :class:`~repro_torch.kernels.stencil2d.emit.CallLayout`
-    (memoized per plan and kernel bodies)."""
-    key = _call_key(call)
+    for ``dtype`` (memoized per plan, kernel bodies and dtype)."""
+    key = _call_key(call, dtype)
     if key not in _CALLS:
-        _CALLS[key] = [CallLayout(call), None]
+        _CALLS[key] = [CallLayout(call, dtype), None]
     return _CALLS[key][0]
 
 
-def build_library(call: CallPlan) -> ctypes.CDLL:
-    """The loaded library of ``call``'s kernel, built on first use."""
-    layout(call)
-    entry = _CALLS[_call_key(call)]
+def build_library(call: CallPlan, dtype=torch.float32) -> ctypes.CDLL:
+    """The loaded library of ``call``'s kernel for ``dtype``, built on
+    first use."""
+    layout(call, dtype)
+    entry = _CALLS[_call_key(call, dtype)]
     if entry[1] is None:
         with _LOCK:
-            entry[1] = build.build([job(call)])[0][0]
+            entry[1] = build.build([job(call, dtype)])[0][0]
     return entry[1]
 
 
-def _check_tensor(t, what: str, shape, device) -> None:
+def _check_tensor(t, what: str, shape, device, dtype) -> None:
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA stencil kernel takes CUDA "
                          f"tensors, got {getattr(t, 'device', type(t))}")
     if t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what}: dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -141,9 +150,10 @@ def occupancy(lib):
 def alloc_outputs(lay: CallLayout, run, device):
     """The kernel's padded outputs under the reference contract (row
     outputs ``(*grid, steps_j, Ni)``, accumulators ``(1, w)`` or
-    ``(*grid[:n_kept], w)``) and its global scratch (the blocks' regions
-    where they do not fit shared memory, the accumulators' partial rows),
-    on ``device``."""
+    ``(*grid[:n_kept], w)``) in ``lay``'s dtype, and its global scratch
+    (the blocks' regions where they do not fit shared memory, the
+    accumulators' partial rows; in 4-byte words, float32), on
+    ``device``."""
     outs = []
     for k, o in enumerate(lay.call.outputs):
         if o.acc is None:
@@ -152,7 +162,8 @@ def alloc_outputs(lay: CallLayout, run, device):
             a = lay.acc_of(k)
             shape = (*run.gsz[:a.n_kept], run.ni + a.w_off) if a.n_kept \
                 else (1, run.ni + a.w_off)
-        outs.append(torch.empty(shape, dtype=torch.float32, device=device))
+        outs.append(torch.empty(shape, dtype=getattr(torch, lay.dtype),
+                                device=device))
     scratch = torch.empty(max(run.scratch_floats, 1), dtype=torch.float32,
                           device=device)
     return outs, scratch
@@ -216,17 +227,16 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     plane-chunk length of a call with plane windows; by default
     :meth:`CallLayout.concretize` sizes both for the fewest row steps in
     waves of the blocks an SM holds of the built kernel.  The kernel is
-    built, and its launch fixed, at the first call."""
-    if dtype != torch.float32:
-        raise PlanUnsupported(
-            f"the CUDA stencil kernel builds for float32 only, not {dtype}")
+    built, and its launch fixed, at the first call.  ``dtype`` is
+    float32 or bf16; any other raises :class:`PlanUnsupported`."""
+    dtype_name(dtype)  # raises PlanUnsupported for another dtype
     n_out = call.n_outer
     if len(sizes) != n_out + 2:
         raise ValueError(
             f"call {call.name} has n_outer={n_out} but got sizes {sizes}")
     require_linked_fns(call)
     require_hazard_free(call)
-    lay = layout(call)
+    lay = layout(call, dtype)
     *outer_sizes, nj, ni = sizes
     steps_j = max(0, nj + call.x_hi_off - call.x_lo)
     in_shapes = []
@@ -249,10 +259,10 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
                              f"inputs, got {len(args)}")
         dev = args[0].device if isinstance(args[0], torch.Tensor) else None
         for i, t, shape in zip(call.inputs, args, in_shapes):
-            _check_tensor(t, f"input {i.name!r}", shape, dev)
+            _check_tensor(t, f"input {i.name!r}", shape, dev, dtype)
         with torch.cuda.device(dev):
             if not built:
-                lib = build_library(call)
+                lib = build_library(call, dtype)
                 sms = torch.cuda.get_device_properties(
                     dev).multi_processor_count
                 built.append((lib, lay.concretize(
@@ -270,7 +280,7 @@ register_interpreter(InterpreterSpec(
     # the reference Pallas kernel's set: unit-stride reads only, no
     # LayoutApply constructs (kernel.py:511-512 of the JAX package)
     capabilities=STENCIL_CAPABILITIES,
-    dtypes=frozenset({torch.float32}),
+    dtypes=frozenset({torch.float32, torch.bfloat16}),
     flags=frozenset({"chunk", "plane_chunk"}),
     description="hand-written CUDA stencil kernel for Hopper (sm_90a): "
                 "one emitted source per CallPlan over csrc/stencil2d.cuh",

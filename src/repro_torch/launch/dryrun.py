@@ -57,6 +57,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.flop_counter import flop_registry
 
 from ..configs import SHAPES, get_arch
+from ..distributed import ctx
 from ..roofline.analysis import (CollectiveLog, Roofline, collective_bytes,
                                  extrapolate, model_flops_for)
 from ..tree import tree_leaves
@@ -221,7 +222,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
                 arch, shape_name, mesh, cfg_override=with_units(cfg, u, shape),
                 microbatch_override=m, policy=policy, grad_comp=grad_comp))
 
+        ctx.LAYOUT_CHANGES.clear()
         (c1, m1), (c2, m2) = counted(1, 1), counted(2, 1)
+        if ctx.LAYOUT_CHANGES:
+            rec["note"] = "; ".join(
+                [*filter(None, [rec.get("note")]),
+                 "per-device counts include the collectives of layout "
+                 "changes torch 2.11's DTensor needs: "
+                 + "; ".join(sorted(ctx.LAYOUT_CHANGES))])
         ex = extrapolate(c1, c2, units)
         if shape.kind == "train" and mb > 1:
             c3, _ = counted(1, 2)

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig
 from ..core.interpreters import resolve_device
-from ..distributed.ctx import constrain, lookup
+from ..distributed.ctx import constrain, lookup, tied
 from ..tree import tree_map
 from .attention import (attn_init, cross_attention, decode_self_attention,
                         encode_cross_kv, self_attention)
@@ -129,7 +129,7 @@ def cast(tree, dtype: torch.dtype):
 
 def _head(params: dict) -> torch.Tensor:
     head = params.get("lm_head")
-    return params["embed"].T if head is None else head
+    return tied(params["embed"]).T if head is None else head
 
 
 def _groups(cfg: ArchConfig, n: int) -> list[range]:
