@@ -11,9 +11,9 @@ Phases, each of which raises on failure:
 
 1. environment: torch, CUDA and nvcc versions, the card's name and
    power limit;
-2. build: every CallPlan of the 15 programs is emitted, in float32 and
-   in bf16, and built with one ``nvcc`` per source, all started
-   together; the tensor-core
+2. build: every CallPlan of the 15 programs is emitted, in float32, in
+   bf16 and in float16, and built with one ``nvcc`` per source, all
+   started together; the tensor-core
    instructions of K2's and K4's libraries are counted (``cuobjdump
    -sass``, HMMA), and the run fails if either has none;
 3. conformance: all 15 programs on the ``"cuda"`` kernel against the
@@ -21,13 +21,16 @@ Phases, each of which raises on failure:
    forced row chunk and with the default one; the four plane-window
    programs also with small forced plane chunks and row tiles (one that
    does not divide the planes, and 1 x 1);
-3b. the same in bf16 (inputs rounded to bf16): every K1 call of every
-   program and chunking held to Gates E and R (``BF16_TOL``,
-   ``GATE_E_FACTOR``, ``GATE_E_FLOOR``) against ``interp_torch``'s call
-   on the same inputs in bf16 and in float64 (the exact value), the
+3b. the same in bf16 and in float16 (inputs rounded to the type): every
+   K1 call of every program and chunking held to Gates E and R
+   (``HALF_GATES``: ``BF16_TOL`` or ``FP16_TOL``, ``GATE_E_FACTOR``, a
+   floor of one step of the type) against ``interp_torch``'s call on the
+   same inputs in that type and in float64 (the exact value), the
    programs without an accumulator also as whole programs, a second
    launch bit for bit equal to the first; the accumulating programs'
-   outputs to Gate E over ``LONG_SUMS`` rows;
+   outputs to Gate E over ``LONG_SUMS`` rows; in float16 K1's
+   non-finite elements must be a subset of the plain version's, the
+   gates holding where both are finite, and the counts are printed;
 4. main path at the sizes of the repository's benchmarks:
    ``compile_program(prog)`` (backend ``"cuda"``) on normalization
    (4096 x 2048), hydro1d (2048 x 4096) and cosmo (64 x 512 x 512),
@@ -43,17 +46,18 @@ Phases, each of which raises on failure:
    plane chunks times row tiles (heat3d at 6 x 32 x 256 and 64 x 512 x
    512, heat3d_stage and heat3d_residual_norm at 64 x 512 x 512,
    advect4d_halo at 4 x 16 x 512 x 512); then normalization, hydro1d,
-   cosmo and heat3d (64 x 512 x 512) in bf16, held to Gates E and R
-   (both relative L2 errors printed), with their times and byte bounds
-   at 2 bytes an element (``kernels`` entries with ``"dtype":
-   "bfloat16"``);
+   cosmo and heat3d (64 x 512 x 512) in bf16 and in float16, held to
+   Gates E and R (both relative L2 errors printed), with their times
+   and byte bounds at 2 bytes an element (``kernels`` entries with
+   ``"dtype": "bfloat16"`` and ``"float16"``);
 4b. the compiler's entry points and PlanServe, each through K1: the
    backend ``"auto"`` picks for each of the 15 programs, without and
    with ``dim_sizes`` at main-path size (every program, split ones
    included, must take ``"cuda"`` and launch K1), with K1's per-block
-   bytes at that size; ``"auto"`` in bf16 for hydro1d and normalization
-   (K1, the bits of ``backend="cuda"``) and ``compile_batched`` in bf16
-   (hydro1d, B = 4, bit for bit its single calls); the fused-source
+   bytes at that size; ``"auto"`` in bf16 and in float16 for hydro1d
+   and normalization (K1, the bits of ``backend="cuda"``) and
+   ``compile_batched`` in both (hydro1d, B = 4, bit for bit its single
+   calls); the fused-source
    emitter (``backend="torch"``)
    on all 15 programs against ``interp_torch`` on the card, then
    normalization and smooth_norm at 4096 x 2048 timed on the emitter
@@ -71,7 +75,9 @@ Phases, each of which raises on failure:
    plan-cache directory, cold and then warm, their answers checked the
    same way;
 5. attention conformance: flash attention (K2) and flash decode (K3)
-   against their plain versions on the card, float32 and bf16, causal
+   against their plain versions on the card, float32, bf16 and
+   float16 (K3's q in float16 over bf16, float16 and float32 caches),
+   causal
    or not, with and without a window, GQA groups 1, 2 and 4, head dims
    64, 80 and 128, ragged sequence lengths and ragged, windowed cache
    lengths; then the shapes of phase 8b's paths: K2 not causal with one
@@ -92,7 +98,8 @@ Phases, each of which raises on failure:
    the main path's lengths (31 of 4096), with the split blocks it
    launched and those that held keys;
 7. SSD conformance: the SSD chunked scan (K4) against its plain version
-   ``ssd_scan`` on the card, x in float32 and bf16, (N, P) = (128, 64)
+   ``ssd_scan`` on the card, x in float32, bf16 and float16, (N, P) =
+   (128, 64)
    and (64, 64), chunks of 256 and 64, sequences that are a multiple of
    the chunk and that are not, B = 1 and 4, and decays that underflow;
 8. the SSM main paths at full width in bf16 with ``attn_impl="pallas"``:
@@ -104,6 +111,16 @@ Phases, each of which raises on failure:
    (``"chunked"``), float32 gated and bf16 printed; greedy decode as for
    qwen3-0.6b; then timed, profiled, and K4 (and zamba2's K2 and K3)
    alone at the path's shapes;
+8c. (run before 8b) the float16 serving paths at full width with
+   ``attn_impl="pallas"``: qwen3-0.6b (28 layers) prefill of 4 x 2048
+   (K2 x 28) and greedy decode over bf16 caches (K3 x 28 x 31) and, 4
+   steps, over float32 caches; mamba2-130m (24 layers) prefill of
+   4 x 2048 (K4 x 24); every kernel call against its plain version in
+   float16 (``ATTN_TOL``, ``SSD_CALL_TOL``), the logits against the
+   plain path where it is finite (``LM_TOL["float16"]`` against
+   ``"reference"``; mamba2-130m's against ``"chunked"`` at
+   ``SSM_LM_TOL``), then K2, K3 and K4 alone in float16 (``kernels``
+   entries with ``"dtype": "float16"``);
 8b. the moe, encdec and vlm paths at full width in bf16 with
    ``attn_impl="pallas"``, random weights from a seeded generator:
    granite-moe-3b-a800m at full depth (32 layers, 40 experts top-8;
@@ -213,16 +230,31 @@ SMALL_PLANE_CHUNK = 2
 # takes roots in bf16 for both, and which lands nearer is chance).
 BF16_TOL = 2e-2
 GATE_E_FACTOR, GATE_E_FLOOR = 1.25, 2.0 ** -8
+# K1 in float16: the same gates at float16's precision, whose step is
+# bf16's divided by 8: Gate E's floor one float16 step (2**-11), Gate R's
+# tolerance BF16_TOL / 8.  float16's range ends at 65504, and the plain
+# version, rounding every intermediate to float16, overflows first (the
+# reference's float16 hydro1d does at its tests' inputs), so K1's
+# non-finite elements must be a subset of the plain version's and both
+# gates hold over the elements where both are finite.
+FP16_TOL = BF16_TOL / 8
+#: Gate R's tolerance and Gate E's floor by dtype
+HALF_GATES = {torch.bfloat16: (BF16_TOL, GATE_E_FLOOR),
+              torch.float16: (FP16_TOL, 2.0 ** -11)}
 #: (k = 4, l = 3: the plane stencils keep an interior of 2 planes)
 LONG_SUMS = {"i": 200, "j": 1024, "k": 4, "l": 3}
-#: phase 4 in bf16: the three main-path stencils and heat3d at cosmo's
-#: size
-BF16_PATH = (("normalization", {"j": 4096, "i": 2048}),
+#: phase 4 in bf16 and in float16: the three main-path stencils and
+#: heat3d at cosmo's size
+HALF_PATH = (("normalization", {"j": 4096, "i": 2048}),
              ("hydro1d", {"j": 2048, "i": 4096}),
              ("cosmo", {"k": 64, "j": 512, "i": 512}),
              ("heat3d", {"k": 64, "j": 512, "i": 512}))
-#: phase 4b: "auto" in bf16 on the card, and compile_batched in bf16
-BF16_AUTO = ("hydro1d", "normalization")
+#: phase 4b: "auto" in bf16 and float16 on the card, and compile_batched
+HALF_AUTO = ("hydro1d", "normalization")
+#: the 2-byte types and their names in the kernels line
+HALF_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
+#: the element types K1 is built for
+K1_DTYPES = (torch.float32, *HALF_NAMES)
 K1_SOURCE = "src/repro_torch/kernels/stencil2d/csrc/stencil2d.cuh"
 K1_REPLACES = "src/repro/kernels/stencil2d/kernel.py:95"
 K2_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -239,8 +271,11 @@ K4_REPLACES = "src/repro/kernels/ssd/kernel.py:61"
 # of the 8 working splits of a 4096-position cache reads about 0.35); it
 # stood 13x (bf16) and 40x (float32) above the largest error measured on
 # an H100 over all shapes here before K2's tensor-core redesign (PERF.md).
+# float16: bf16's divided by 4, where float16's step is bf16's divided by
+# 8.
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4, rel_l2=1e-5),
-            torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2, rel_l2=1e-3)}
+            torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2, rel_l2=1e-3),
+            torch.float16: dict(atol=2.5e-4, rtol=4e-3, rel_l2=2.5e-4)}
 # Full-width logits, kernel path against the plain paths.  bf16 against
 # "reference", which rounds scores and probabilities to bf16 where the
 # kernels keep them float32: 1.2-1.6 % relative L2 at 2-6 layers of this
@@ -248,7 +283,10 @@ ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4, rel_l2=1e-5),
 # attention math in another summation order.  (A bf16 gate against
 # "chunked" at 1e-2 did not hold: one-ulp bf16 differences grow over 28
 # layers to 1.7e-2, PERF.md; that distance is printed, not gated.)
+# float16 against "reference" (which rounds scores and probabilities to
+# float16), over the logits where the plain path is finite.
 LM_TOL = {"bfloat16": dict(rel_l2=5e-2, max_abs=0.25),
+          "float16": dict(rel_l2=1e-2, max_abs=5e-2),
           "float32": dict(rel_l2=1e-3, max_abs=1e-2)}
 # K4 against its plain version: float32 elementwise as the on-card K4
 # test (tests/test_torch_ssd_kernel.py: the same float32 arithmetic in
@@ -257,7 +295,8 @@ LM_TOL = {"bfloat16": dict(rel_l2=5e-2, max_abs=0.25),
 # by |A| in an exponent); bf16 as ATTN_TOL (one rounding of y in each).
 # A dropped 64 x 64 tile of a 256-token chunk moves y by O(1).
 SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, rel_l2=1e-4),
-           torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2, rel_l2=1e-3)}
+           torch.bfloat16: dict(atol=1e-3, rtol=1.6e-2, rel_l2=1e-3),
+           torch.float16: dict(atol=2.5e-4, rtol=4e-3, rel_l2=2.5e-4)}
 # K4 calls on the SSM models' own inputs.  There A reaches -16 and the
 # prefix sums of dt reach ~200, so float32's own error of the function
 # reaches 1.4e-3 x RMS(y) (ssd_scan against a float64 recurrence on
@@ -310,6 +349,9 @@ VLM_IMAGE = 32
 LM_ARCH = "qwen3-0.6b"
 PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_PROMPT, DECODE_STEPS, MAX_SEQ = 4, 16, 16, 4096
+#: Phase 8c's float16 greedy decode over float32 caches (the one over
+#: bf16 caches takes DECODE_STEPS).
+FP16_F32_CACHE_STEPS = 4
 #: Phase 4b.  The split programs timed on the fused-source emitter
 #: against K1, with their sizes (normalization's main-path size).
 EMITTER_PATH = (("normalization", {"j": 4096, "i": 2048}),
@@ -390,22 +432,38 @@ DRYRUN_CELLS = (("mamba2-130m", "decode_32k"), ("zamba2-2.7b", "decode_32k"),
                 ("mamba2-130m", "train_4k"))
 
 
+def finite_where(got, want, tag: str):
+    """The elements a comparison holds over: all of them, where ``got``
+    must be finite; in float16 (``want``'s dtype) those where both are
+    finite, ``got``'s non-finite elements a subset of ``want``'s."""
+    ok = torch.isfinite(got.float())
+    if want.dtype != torch.float16:
+        if not bool(ok.all()):
+            raise AssertionError(f"{tag}: non-finite values")
+        return ok
+    plain = torch.isfinite(want.float())
+    extra = int((plain & ~ok).sum())
+    if extra:
+        raise AssertionError(f"{tag}: {extra} non-finite values where the "
+                             f"plain version is finite")
+    return ok & plain
+
+
 def close(got, want, tag: str, atol: float, rtol: float) -> float:
     """Max |got - want| (as float32); raises past the tolerance or on a
-    non-finite value."""
-    got, want = got.float(), want.float()
+    non-finite value (in float16: one where ``want`` is finite)."""
     if got.shape != want.shape:
         raise AssertionError(f"{tag}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{tag}: non-finite values")
+    m = finite_where(got, want, tag)
+    got, want = got.float()[m], want.float()[m]
     diff = (got - want).abs()
     n_bad = int((diff > atol + rtol * want.abs()).sum())
     if n_bad:
         raise AssertionError(f"{tag}: {n_bad} of {got.numel()} values past "
                              f"atol={atol} rtol={rtol} (max abs err "
                              f"{float(diff.max()):.3e})")
-    return float(diff.max())
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 def gated(got, want, tag: str, tol: dict) -> tuple[float, float]:
@@ -414,10 +472,11 @@ def gated(got, want, tag: str, tol: dict) -> tuple[float, float]:
     optionally atol_rms: an absolute floor of atol_rms x RMS(want))."""
     from repro_torch.serve import bench as sb
 
+    m = finite_where(got, want, tag)  # in float16, where both are finite
+    got, want = got.float()[m], want.float()[m]
     atol = tol["atol"]
     if "atol_rms" in tol:
-        atol = max(atol, tol["atol_rms"]
-                   * float(want.float().pow(2).mean().sqrt()))
+        atol = max(atol, tol["atol_rms"] * float(want.pow(2).mean().sqrt()))
     e = close(got, want, tag, atol, tol["rtol"])
     r = sb.rel_l2(got, want)
     if not r <= tol["rel_l2"]:
@@ -452,43 +511,82 @@ def rel_l2(got, exact) -> float:
     return num / den if den > 0 else num
 
 
-def gate_e(got: dict, plain: dict, exact: dict, tag: str) -> dict:
-    """Gate E on every output; returns ``{output: (K1's relative L2 to
-    the exact value, the plain version's)}``; raises past the gate or on
-    a non-finite value."""
+def gate_e(got: dict, plain: dict, exact: dict, tag: str,
+           dtype=torch.bfloat16) -> dict:
+    """Gate E on every output (in float16 over the elements where K1 and
+    the plain version are finite); returns ``{output: (K1's relative L2
+    to the exact value, the plain version's)}``; raises past the gate or
+    on a non-finite value (in float16: one where the plain version is
+    finite)."""
+    floor = HALF_GATES[dtype][1]
     out = {}
     for k, e in exact.items():
-        if not bool(torch.isfinite(got[k].float()).all()):
-            raise AssertionError(f"{tag}:{k}: non-finite values")
-        mine, theirs = rel_l2(got[k], e), rel_l2(plain[k], e)
-        if not mine <= max(GATE_E_FACTOR * theirs, GATE_E_FLOOR):
+        m = finite_where(got[k], plain[k], f"{tag}:{k}")
+        mine, theirs = rel_l2(got[k][m], e[m]), rel_l2(plain[k][m], e[m])
+        if not mine <= max(GATE_E_FACTOR * theirs, floor):
             raise AssertionError(
-                f"{tag}:{k}: Gate E: K1 bf16 relative L2 {mine:.3e} to the "
-                f"exact value, the plain bf16 version {theirs:.3e}")
+                f"{tag}:{k}: Gate E: K1 {HALF_NAMES[dtype]} relative L2 "
+                f"{mine:.3e} to the exact value, the plain version "
+                f"{theirs:.3e}")
         out[k] = (mine, theirs)
     return out
 
 
-def gate_r(got: dict, plain: dict, tag: str) -> float:
-    """Gate R on every output; returns the max |got - plain|."""
-    return max(close(got[k], p, f"{tag}:{k} (Gate R)",
-                     BF16_TOL * max(float(p.float().abs().max()), 1.0),
-                     BF16_TOL) for k, p in plain.items())
+def gate_r(got: dict, plain: dict, exact: dict, tag: str,
+           dtype=torch.bfloat16) -> float:
+    """Gate R on every output; returns the max |got - plain|.  In float16
+    an element past the tolerance passes only where K1 lies no further
+    from the exact value than the plain version does: the plain version
+    rounds every intermediate to float16, and on hydro1d that alone puts
+    it past the tolerance (0.056 off the exact value at 1.07, on 2 of
+    7400 elements at ``CONFORMANCE_DIMS``), where K1, in float arithmetic
+    with one rounding, lies nearer.  Such elements are counted and
+    printed."""
+    tol = HALF_GATES[dtype][0]
+    worst = 0.0
+    for k, p in plain.items():
+        g, w = got[k], p
+        if dtype == torch.float16:
+            m = finite_where(g, w, f"{tag}:{k} (Gate R)")
+            g, w, e = g.float()[m], w.float()[m], exact[k].double()[m]
+            atol = tol * max(float(w.abs().max()) if w.numel() else 0.0, 1.0)
+            past = (g - w).abs() > atol + tol * w.abs()
+            nearer = (g.double() - e).abs() <= (w.double() - e).abs()
+            if bool((past & nearer).any()):
+                print(f"{tag}:{k} (Gate R): {int((past & nearer).sum())} of "
+                      f"{g.numel()} elements past the tolerance of the plain "
+                      f"float16 version, each as near the exact value as "
+                      f"it", flush=True)
+            keep = ~(past & nearer)
+            g, w = g[keep], w[keep]
+        worst = max(worst, close(
+            g, w, f"{tag}:{k} (Gate R)",
+            tol * max(float(w.float().abs().max()) if w.numel() else 0.0,
+                      1.0), tol))
+    return worst
 
 
-def call_gates(records, tag: str) -> tuple[float, float]:
-    """Gates E and R on each recorded bf16 K1 call (``bench.capture``):
-    its outputs, an accumulator's rows before the host folds their
-    lanes, against ``interp_torch``'s call on the same inputs in bf16
-    and, the exact value, in float64.  K1's outputs come from one more
-    launch of the recorded call (not counted in ``kernel.launches``).
-    Returns the largest (K1's, the plain version's) relative L2 to the
-    exact value."""
+def non_finite(out: dict) -> int:
+    """The non-finite elements over a result's outputs."""
+    return sum(int((~torch.isfinite(v.float())).sum()) for v in out.values())
+
+
+def call_gates(records, tag: str, dtype=torch.bfloat16) -> tuple:
+    """Gates E and R on each recorded bf16 or float16 K1 call
+    (``bench.capture``): its outputs, an accumulator's rows before the
+    host folds their lanes, against ``interp_torch``'s call on the same
+    inputs in ``dtype`` and, the exact value, in float64.  K1's outputs
+    come from one more launch of the recorded call (not counted in
+    ``kernel.launches``).  Returns the largest (K1's, the plain
+    version's) relative L2 to the exact value and the non-finite
+    elements of (K1, the plain version, the exact value) over the
+    calls."""
     from repro_torch.core.interpreters import assemble, get_interpreter
     from repro_torch.kernels.stencil2d import kernel as k1
 
     plain = get_interpreter("interp_torch")
     worst = (0.0, 0.0)
+    bad = [0, 0, 0]
     for lib, lay, run, args in records:
         call = lay.call
         *outer, nj, ni = run.sizes
@@ -504,17 +602,19 @@ def call_gates(records, tag: str) -> tuple[float, float]:
         k1.launch(lib, run, tensors, threads=run.threads,
                   stream=torch.cuda.current_stream(dev).cuda_stream)
         got = values(outs)
-        want = values(plain.build_call(call, run.sizes, torch.bfloat16,
+        want = values(plain.build_call(call, run.sizes, dtype,
                                        device=dev)[0](*args))
         exact = values(plain.build_call(call, run.sizes, torch.float64,
                                         device=dev)[0](
             *[a.double() for a in args]))
-        errs = gate_e(got, want, exact, f"{tag}/{call.name}")
+        for i, out in enumerate((got, want, exact)):
+            bad[i] += non_finite(out)
+        errs = gate_e(got, want, exact, f"{tag}/{call.name}", dtype)
         if not call.accs:
-            gate_r(got, want, f"{tag}/{call.name}")
+            gate_r(got, want, exact, f"{tag}/{call.name}", dtype)
         worst = (max(worst[0], *(m for m, _ in errs.values())),
                  max(worst[1], *(t for _, t in errs.values())))
-    return worst
+    return (*worst, tuple(bad))
 
 
 def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
@@ -522,21 +622,22 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
     """Run ``n`` once through ``compile_program`` (backend ``"cuda"``,
     ``dtype``) at ``dims`` with the launch count set to 0 just before,
     hold it against the unfused evaluator and the plain interpreter (in
-    bf16: Gates E and R against the plain interpreter in bf16 and the
-    exact value, program by program and call by call), time it, and
-    return its entry of the ``kernels`` line."""
+    bf16 and float16: Gates E and R against the plain interpreter in
+    that type and the exact value, program by program and call by call),
+    time it, and return its entry of the ``kernels`` line."""
     from repro_torch.core import ALL_PROGRAMS, build_unfused, compile_program
     from repro_torch.kernels import build
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
 
-    bf16 = dtype == torch.bfloat16
+    half = HALF_NAMES.get(dtype)
     prog = ALL_PROGRAMS[n]()
     gen = compile_program(prog, backend="cuda", dtype=dtype)
-    arrs = bench.make_inputs(n, gen.kernel_plan, dims, 11, dev, bf16=bf16)
+    arrs = bench.make_inputs(n, gen.kernel_plan, dims, 11, dev,
+                             round_to=dtype if half else None)
     exact_in = arrs
-    if bf16:  # the kernel's own dtype: no cast inside the timed call
-        arrs = {k: v.bfloat16() for k, v in arrs.items()}
+    if half:  # the kernel's own dtype: no cast inside the timed call
+        arrs = {k: v.to(dtype) for k, v in arrs.items()}
     k1.launches = 0
     got, records = bench.capture(lambda: gen.fn(**arrs))
     launches = k1.launches
@@ -559,28 +660,33 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     extra = {}
-    if bf16:
+    if half:
         exact = compile_program(prog, backend="interp_torch",
                                 dtype=torch.float64, device=dev
                                 ).fn(**exact_in)
-        errs = gate_e(got, want, exact, f"main/{n}/bf16")
+        errs = gate_e(got, want, exact, f"main/{n}/{half}", dtype)
         has_acc = any(c.accs for c in gen.kernel_plan.calls)
-        err_plain = max(float((got[k].float() - w.float()).abs().max())
-                        for k, w in want.items())
+        err_plain = max(float((got[k].float() - w.float()).nan_to_num(
+            0.0, 0.0, 0.0).abs().max()) for k, w in want.items())
         if not has_acc:
-            gate_r(got, want, f"main/{n}/bf16")
-        calls = call_gates(records, f"main/{n}/bf16")
+            gate_r(got, want, exact, f"main/{n}/{half}", dtype)
         k1_rel = max(m for m, _ in errs.values())
         plain_rel = max(t for _, t in errs.values())
+        bad = (non_finite(got), non_finite(want), non_finite(exact))
+        # a program of one call without an accumulator: its call's
+        # outputs are the program's, just held to both gates
+        calls = call_gates(records, f"main/{n}/{half}", dtype) \
+            if has_acc or len(records) > 1 else (k1_rel, plain_rel, bad)
         err_unfused = max(rel_l2(unfused[k], e) for k, e in exact.items())
         accuracy = (f"rel_l2 to the exact value: K1={k1_rel:.3e} "
-                    f"interp_torch_bf16={plain_rel:.3e} (Gate E"
+                    f"interp_torch_{half}={plain_rel:.3e} (Gate E"
                     f"{'' if has_acc else ' and R'}; each call: K1 "
-                    f"{calls[0]:.3e}, plain {calls[1]:.3e})  unfused_bf16 "
-                    f"rel_l2={err_unfused:.3e}  max_abs_err vs plain="
-                    f"{err_plain:.3e}")
-        extra = {"dtype": "bfloat16", "rel_l2": k1_rel,
-                 "plain_rel_l2": plain_rel}
+                    f"{calls[0]:.3e}, plain {calls[1]:.3e})  "
+                    f"non-finite K1/plain/exact: program {bad}, calls "
+                    f"{calls[2]}  unfused_{half} rel_l2={err_unfused:.3e}  "
+                    f"max_abs_err vs plain={err_plain:.3e}")
+        extra = {"dtype": half, "rel_l2": k1_rel, "plain_rel_l2": plain_rel,
+                 "non_finite": bad}
     else:
         err_unfused = max_err(got, unfused, f"main/{n}/unfused")
         err_plain = max_err(got, want, f"main/{n}/interp_torch")
@@ -611,7 +717,8 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
     barriers = "+".join(str(lay.barriers_per_row)
                         for _, lay, _, _ in records)
     shape = tuple(dims.values())
-    print(f"main {n:14s} {shape}{' bf16' if bf16 else ''}: launches="
+    tag = f" {'bf16' if dtype == torch.bfloat16 else half}" if half else ""
+    print(f"main {n:14s} {shape}{tag}: launches="
           f"{launches}  blocks={blocks} "
           f"({tiles})  smem={smem}  regs={regs}  local_bytes={spill}  "
           f"resident={resident}  waves={waves}  "
@@ -621,8 +728,7 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
           f"bound_ms={bound_ms:.4f} (at {rate / 1e12:.2f} TB/s)  "
           f"card: {smi}", flush=True)
     return {
-        "name": f"stencil2d[{n} {'x'.join(map(str, shape))}"
-                f"{' bf16' if bf16 else ''}]",
+        "name": f"stencil2d[{n} {'x'.join(map(str, shape))}{tag}]",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": err_plain,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -633,25 +739,26 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
     }
 
 
-def bf16_conformance(plans: dict, dev) -> None:
-    """Phase 3b: every program through K1 in bf16 at ``CONFORMANCE_DIMS``
-    in phase 3's chunk variants, held to Gates E and R against
-    ``interp_torch`` in bf16 and float64 on the card, call by call and
-    (without an accumulator) program by program, a second launch bit for
-    bit equal to the first; then each accumulating program's outputs to
-    Gate E over ``LONG_SUMS``."""
+def half_conformance(plans: dict, dev, dtype) -> None:
+    """Phase 3b: every program through K1 in ``dtype`` (bf16 or float16)
+    at ``CONFORMANCE_DIMS`` in phase 3's chunk variants, held to Gates E
+    and R against ``interp_torch`` in ``dtype`` and float64 on the card,
+    call by call and (without an accumulator) program by program, a
+    second launch bit for bit equal to the first; then each accumulating
+    program's outputs to Gate E over ``LONG_SUMS``."""
     from repro_torch.core import ALL_PROGRAMS, compile_program
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
 
     t0 = time.perf_counter()
+    half = HALF_NAMES[dtype]
 
     def references(n, dims):
-        arrs = bench.make_inputs(n, plans[n], dims, 7, dev, bf16=True)
+        arrs = bench.make_inputs(n, plans[n], dims, 7, dev, round_to=dtype)
         plain, exact = (compile_program(ALL_PROGRAMS[n](),
                                         backend="interp_torch", dtype=dt,
                                         device=dev).fn(**arrs)
-                        for dt in (torch.bfloat16, torch.float64))
+                        for dt in (dtype, torch.float64))
         return arrs, plain, exact
 
     for n, b in sorted(ALL_PROGRAMS.items()):
@@ -664,39 +771,45 @@ def bf16_conformance(plans: dict, dev) -> None:
                          {"chunk": 1, "plane_chunk": 1}]
         line = []
         for opts in runs:
-            tag = f"conformance/bf16/{n}/{opts}"
+            tag = f"conformance/{half}/{n}/{opts}"
             gen = compile_program(b(), backend="cuda", device=dev,
-                                  dtype=torch.bfloat16, **opts)
+                                  dtype=dtype, **opts)
             got, records = bench.capture(lambda: gen.fn(**arrs))
             again = gen.fn(**arrs)
             for k, v in got.items():
-                if v.dtype != torch.bfloat16:
+                if v.dtype != dtype:
                     raise AssertionError(f"{tag}:{k}: dtype {v.dtype}")
                 if not torch.equal(v, again[k]):
                     raise AssertionError(f"{tag}:{k}: differs between two "
                                          f"launches")
-            mine, theirs = call_gates(records, tag)
-            line.append(f"{opts}: calls {mine:.2e}/{theirs:.2e}")
+            mine, theirs, bad = call_gates(records, tag, dtype)
+            line.append(f"{opts}: calls {mine:.2e}/{theirs:.2e}"
+                        + (f" non-finite {bad}" if any(bad) else ""))
             if not has_acc:
-                errs = gate_e(got, plain, exact, tag)
-                gate_r(got, plain, tag)
+                errs = gate_e(got, plain, exact, tag, dtype)
+                gate_r(got, plain, exact, tag, dtype)
                 line[-1] += (" program " + " ".join(
                     f"{m:.2e}/{t:.2e}" for m, t in errs.values()))
         if has_acc:
             arrs, plain, exact = references(n, LONG_SUMS)
             got = compile_program(b(), backend="cuda", device=dev,
-                                  dtype=torch.bfloat16).fn(**arrs)
+                                  dtype=dtype).fn(**arrs)
             for k, e in exact.items():
                 if not float(e.double().norm()) > 0:
-                    raise AssertionError(f"conformance/bf16/{n}/long:{k}: "
+                    raise AssertionError(f"conformance/{half}/{n}/long:{k}: "
                                          f"the exact value is zero")
-            errs = gate_e(got, plain, exact, f"conformance/bf16/{n}/long")
+            errs = gate_e(got, plain, exact, f"conformance/{half}/{n}/long",
+                          dtype)
             line.append(f"program over {LONG_SUMS}: " + " ".join(
-                f"{m:.2e}/{t:.2e}" for m, t in errs.values()))
-        print(f"conformance bf16 {n:22s} rel_l2 to the exact value, K1/"
-              f"interp_torch bf16 (Gate E{'' if has_acc else ' and R'}): "
+                f"{m:.2e}/{t:.2e}" for m, t in errs.values())
+                + f" non-finite K1/plain {non_finite(got)}/"
+                f"{non_finite(plain)} of "
+                f"{sum(v.numel() for v in got.values())}")
+        print(f"conformance {half} {n:22s} rel_l2 to the exact value, K1/"
+              f"interp_torch {half} (Gate E{'' if has_acc else ' and R'}): "
               + "  ".join(line), flush=True)
-    print(f"bf16 conformance: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{half} conformance: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def main_dims(n: str, kplan) -> dict:
@@ -775,63 +888,62 @@ def compile_program_plain(prog):
                            device="cpu").kernel_plan
 
 
-def bf16_entry_points(plans: dict, dev) -> None:
-    """Phase 4b's bf16 checks: ``"auto"`` in bf16 on the card takes K1
-    (``BF16_AUTO``) and gives the bits of ``backend="cuda"``;
-    ``compile_batched`` in bf16 through K1 at B = 4 gives each example's
-    single-call bits."""
+def half_entry_points(plans: dict, dev, dtype) -> None:
+    """Phase 4b's bf16 and float16 checks: ``"auto"`` in ``dtype`` on the
+    card takes K1 (``HALF_AUTO``) and gives the bits of
+    ``backend="cuda"``; ``compile_batched`` in ``dtype`` through K1 at
+    B = 4 gives each example's single-call bits."""
     from repro_torch.core import (ALL_PROGRAMS, Generated, compile_batched,
                                   compile_program)
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
 
-    for n in BF16_AUTO:
+    half = HALF_NAMES[dtype]
+    for n in HALF_AUTO:
         arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev,
-                                 bf16=True)
-        gen = compile_program(ALL_PROGRAMS[n](), dtype=torch.bfloat16)
+                                 round_to=dtype)
+        gen = compile_program(ALL_PROGRAMS[n](), dtype=dtype)
         route = "torch" if isinstance(gen, Generated) else gen.interpreter
         if route != "cuda":
-            raise AssertionError(f"auto/bf16/{n}: took {route!r}, not "
+            raise AssertionError(f"auto/{half}/{n}: took {route!r}, not "
                                  f"'cuda'")
         k1.launches = 0
         got = gen.fn(**arrs)
         torch.cuda.synchronize()
         if k1.launches == 0:
-            raise AssertionError(f"auto/bf16/{n}: no K1 launch")
+            raise AssertionError(f"auto/{half}/{n}: no K1 launch")
         launches = k1.launches
         want = compile_program(ALL_PROGRAMS[n](), backend="cuda",
-                               dtype=torch.bfloat16).fn(**arrs)
+                               dtype=dtype).fn(**arrs)
         for k in want:
-            if got[k].dtype != torch.bfloat16 or not torch.equal(got[k],
-                                                                 want[k]):
-                raise AssertionError(f"auto/bf16/{n}:{k}: differs from "
+            if got[k].dtype != dtype or not torch.equal(got[k], want[k]):
+                raise AssertionError(f"auto/{half}/{n}:{k}: differs from "
                                      f"backend='cuda'")
-        print(f"auto bf16 {n:17s} route={route}  K1 launches={launches}  "
+        print(f"auto {half} {n:17s} route={route}  K1 launches={launches}  "
               f"bit-identical to backend='cuda'", flush=True)
 
     # compile_batched, against single calls
     n, dims = BATCHED_PATH[0]
-    examples = [bench.make_inputs(n, plans[n], dims, 20 + b, dev, bf16=True)
-                for b in range(BATCH)]
+    examples = [bench.make_inputs(n, plans[n], dims, 20 + b, dev,
+                                  round_to=dtype) for b in range(BATCH)]
     batch = {k: torch.stack([e[k] for e in examples]) for k in examples[0]}
-    bgen = compile_batched(ALL_PROGRAMS[n](), "cuda", dtype=torch.bfloat16)
-    single = compile_program(ALL_PROGRAMS[n](), backend="cuda",
-                             dtype=torch.bfloat16)
+    bgen = compile_batched(ALL_PROGRAMS[n](), "cuda", dtype=dtype)
+    single = compile_program(ALL_PROGRAMS[n](), backend="cuda", dtype=dtype)
     k1.launches = 0
     out = bgen.fn(batch)
     torch.cuda.synchronize()
     launches = k1.launches
     if launches == 0:
-        raise AssertionError(f"batched/bf16/{n}: no K1 launch")
+        raise AssertionError(f"batched/{half}/{n}: no K1 launch")
     for b, ex in enumerate(examples):
         want = single.fn(**ex)
         for k in want:
-            if out[k].dtype != torch.bfloat16 or not torch.equal(out[k][b],
-                                                                 want[k]):
-                raise AssertionError(f"batched/bf16/{n}:{k}[{b}]: differs "
+            if out[k].dtype != dtype or not torch.equal(out[k][b], want[k]):
+                raise AssertionError(f"batched/{half}/{n}:{k}[{b}]: differs "
                                      f"from a single call")
-    print(f"batched bf16 {n} {'x'.join(map(str, (BATCH, *dims.values())))}:"
-          f" launches={launches}  bit-identical to {BATCH} single calls",
+    print(f"batched {half} {n} "
+          f"{'x'.join(map(str, (BATCH, *dims.values())))}: "
+          f"launches={launches}  bit-identical to {BATCH} single calls",
           flush=True)
 
 
@@ -891,8 +1003,9 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
               f"{k1.launches}  K1 region a block={smem} B (shared memory "
               f"holds {SMEM_LIMIT})", flush=True)
 
-    # 1b. bf16 through "auto" and compile_batched
-    bf16_entry_points(plans, dev)
+    # 1b. bf16 and float16 through "auto" and compile_batched
+    for dtype in HALF_NAMES:
+        half_entry_points(plans, dev, dtype)
 
     # 2. the fused-source emitter: all 15 programs against interp_torch
     # on the card, then the split programs timed against K1
@@ -1187,7 +1300,8 @@ def attention_conformance(dev) -> dict:
 
     # K2: ragged S, and Sq < Skv at the default q_offset
     for dt, D, group, causal, window, (Sq, Skv, q_off) in itertools.product(
-            (torch.float32, torch.bfloat16), (64, 80, 128), (1, 2, 4),
+            (torch.float32, torch.bfloat16, torch.float16), (64, 80, 128),
+            (1, 2, 4),
             (True, False), (None, 100), ((257, 257, 0), (190, 333, None))):
         q = rnd(2, Sq, 2 * group, D, dtype=dt)
         k = rnd(2, Skv, 2, D, dtype=dt)
@@ -1202,10 +1316,14 @@ def attention_conformance(dev) -> dict:
                        f"window={window} Sq={Sq} Skv={Skv}")
         key = ("flash_attention", str(dt))
         errs[key] = tuple(map(max, errs.get(key, (0.0, 0.0)), e))
-    # K3: ragged and windowed lengths over a 1000-position cache
+    # K3: ragged and windowed lengths over a 1000-position cache; q in
+    # float16 over caches of each type (a bf16 cache rounded through
+    # float16, as the reference casts the caches to the compute dtype)
+    f16, bf16 = torch.float16, torch.bfloat16
     for (qdt, cdt), D, group, window in itertools.product(
-            ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-             (torch.bfloat16, torch.float32)), (64, 80, 128), (1, 2, 4),
+            ((torch.float32, torch.float32), (bf16, bf16),
+             (bf16, torch.float32), (f16, f16), (f16, bf16),
+             (f16, torch.float32)), (64, 80, 128), (1, 2, 4),
             (None, 300)):
         q = rnd(3, 2 * group, D, dtype=qdt)
         kc = rnd(3, 1000, 2, D, dtype=cdt)
@@ -1225,7 +1343,7 @@ def attention_conformance(dev) -> dict:
     # heads over 8, D = 64) and group 8 (qwen2-vl-72b: 64 over 8, D =
     # 128), ragged where the paths are not; K3 at groups 3 and 8
     for dt, (B, Sq, Skv, H, KVH, D, causal) in itertools.product(
-            (torch.float32, torch.bfloat16), NEW_K2_SHAPES):
+            (torch.float32, bf16, f16), NEW_K2_SHAPES):
         q = rnd(B, Sq, H, D, dtype=dt)
         k = rnd(B, Skv, KVH, D, dtype=dt)
         v = rnd(B, Skv, KVH, D, dtype=dt)
@@ -1238,7 +1356,7 @@ def attention_conformance(dev) -> dict:
         key = ("flash_attention", str(dt))
         errs[key] = tuple(map(max, errs.get(key, (0.0, 0.0)), e))
     for dt, (H, KVH, D) in itertools.product(
-            (torch.float32, torch.bfloat16), NEW_K3_SHAPES):
+            (torch.float32, bf16, f16), NEW_K3_SHAPES):
         q = rnd(3, H, D, dtype=dt)
         kc = rnd(3, 1000, KVH, D, dtype=dt)
         vc = rnd(3, 1000, KVH, D, dtype=dt)
@@ -1518,12 +1636,14 @@ def k2_alone(q, k, v, tag: str, flush, rate: float, smi: str, *,
 
 
 def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
-             rate: float, smi: str, max_seq: int = MAX_SEQ) -> dict:
-    """K3 alone over a full ``max_seq``-position cache of random values
-    from ``gen``: its wrapper against the plain version, then its launch
-    timed beside the plain version, one SDPA call and its bound; then at
-    the main path's lengths.  Returns the fields of its ``kernels``
-    entry but the name and launches."""
+             rate: float, smi: str, max_seq: int = MAX_SEQ,
+             cache_dt=None) -> dict:
+    """K3 alone, q in ``dt``, over a full ``max_seq``-position cache (in
+    ``cache_dt``, default ``dt``) of random values from ``gen``: its
+    wrapper against the plain version, then its launch timed beside the
+    plain version, one SDPA call (on the caches cast to ``dt`` before
+    the timing) and its bound; then at the main path's lengths.  Returns
+    the fields of its ``kernels`` entry but the name and launches."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import kernel as k3
@@ -1531,9 +1651,10 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
     from repro_torch.serve import bench as sb
 
     dev = gen.device
+    cache_dt = cache_dt or dt
     q = torch.randn((B, H, D), generator=gen, device=dev).to(dt)
-    kc = torch.randn((B, max_seq, KVH, D), generator=gen, device=dev).to(dt)
-    vc = torch.randn((B, max_seq, KVH, D), generator=gen, device=dev).to(dt)
+    kc, vc = (torch.randn((B, max_seq, KVH, D), generator=gen,
+                          device=dev).to(cache_dt) for _ in range(2))
     lengths = torch.full((B,), max_seq, dtype=torch.int32, device=dev)
     want = k3.flash_decode_plain(q, kc, vc, lengths, window=None,
                                  scale=D ** -0.5)
@@ -1549,7 +1670,7 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
         lambda: k3.flash_decode_plain(q, kc, vc, lengths, window=None,
                                       scale=D ** -0.5), flush)
     qt = q[:, :, None]
-    kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    kt, vt = (t.transpose(1, 2).to(dt).contiguous() for t in (kc, vc))
     lib_ms = bench.device_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
         flush)
@@ -1559,7 +1680,8 @@ def k3_alone(B: int, H: int, KVH: int, D: int, dt, gen, tag: str, flush,
     bound, by = sb.bound_ms(flops, nbytes, peak, rate)
     earlier = EARLIER_MS.get(("K3", tag))
     print(f"K3 ({tag}: B={B} H={H} KVH={KVH} D={D} S=lengths={max_seq} "
-          f"{str(dt).replace('torch.', '')} cache, blocks={blocks} "
+          f"q {str(dt).replace('torch.', '')}, "
+          f"{str(cache_dt).replace('torch.', '')} cache, blocks={blocks} "
           f"split+combine, {res.working} split blocks holding keys): "
           f"ms={ms:.4f} "
           + (f"(the earlier kernel, with its launch: {earlier:.4f})  "
@@ -1614,7 +1736,8 @@ def ssd_conformance(dev) -> dict:
     # steps (dt about 8, |A| up to 4) make every decay past a few tokens
     # underflow
     for dt, (N, P), chunk, S, B, steep in itertools.product(
-            (torch.float32, torch.bfloat16), ((128, 64), (64, 64)),
+            (torch.float32, torch.bfloat16, torch.float16),
+            ((128, 64), (64, 64)),
             (256, 64), (512, 864), (1, 4), (False, True)):
         H = 3
         x = rnd(B, S, H, P, scale=0.5).to(dt)
@@ -1691,7 +1814,6 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     Returns their entries of the ``kernels`` line."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.ssd import kernel as k4
-    from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.models import decode_step, forward, init_caches
     from repro_torch.models import init_params
@@ -1699,7 +1821,6 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     from repro_torch.serve import bench as sb
     from repro_torch.serve import greedy_decode, make_prefill_step
 
-    name = torch.cuda.get_device_name(dev)
     cfg = ARCHS[arch].replace(attn_impl="pallas", n_layers=layers)
     groups = layers // cfg.hybrid.attn_every if cfg.hybrid else 0
     s = cfg.ssm
@@ -1866,7 +1987,49 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
     del caches
 
     # K4 alone on the first layer's inputs of the driven prefill
+    entries = [{
+        "name": f"ssd[{arch} prefill B={PREFILL_B} S={PREFILL_S} H={H} "
+                f"P={P} N={N} L={k4.chunk_len(PREFILL_S, cfg.ssd_chunk)} "
+                f"x bf16]",
+        "launches": launches["K4"],
+        **k4_alone(k4_args, k4_kw, arch, layers, prefill_ms, flush, rate,
+                   smi),
+        "max_abs_err": k4_call[0], "rel_l2_err": k4_call[1],
+        "decode_step_ms": step_ms}]
+    del k4_args
+    if groups:
+        q, k, v = k2_args
+        e2 = k2_alone(q, k, v, arch, flush, rate, smi, calls=groups,
+                      prefill_ms=prefill_ms)
+        del q, k, v, k2_args
+        e3 = k3_alone(DECODE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt, gen,
+                      arch, flush, rate, smi)
+        entries += [
+            {"name": f"flash_attention[{arch} prefill B={PREFILL_B} "
+                     f"S={PREFILL_S} causal bf16]",
+             "launches": launches["K2"], **e2, "max_abs_err": k2_call[0],
+             "rel_l2_err": k2_call[1], "prefill_ms": prefill_ms},
+            {"name": f"flash_decode[{arch} B={DECODE_B} S={MAX_SEQ} "
+                     f"bf16 cache]",
+             "launches": dlaunches["K3"], **e3, "max_abs_err": k3_call[0],
+             "rel_l2_err": k3_call[1], "decode_step_ms": step_ms}]
+    return entries
+
+
+def k4_alone(k4_args, k4_kw: dict, arch: str, layers: int, prefill_ms: float,
+             flush, rate: float, smi: str) -> dict:
+    """K4 alone on one driven call's inputs ``k4_args`` (the first
+    layer's): its launch against ``ssd_scan``, timed beside it, against
+    its tensor-core bound.  Returns the fields of its ``kernels`` entry
+    but the name and launches."""
+    from repro_torch.kernels.ssd import kernel as k4
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.serve import bench as sb
+
     x, dtv, A, Bm, Cm, D = k4_args
+    name = torch.cuda.get_device_name(x.device)
+    H, P, N = x.shape[2], x.shape[3], Bm.shape[-1]
     L = k4.chunk_len(x.shape[1], k4_kw["chunk"])
     want = ssd_scan(x, dtv, A, Bm, Cm, D, chunk=L)
     y, k4_run = k4.prepare(x, dtv, A, Bm, Cm, D, **k4_kw)
@@ -1897,32 +2060,209 @@ def serve_ssm(arch: str, layers: int, dev, flush, rate: float,
           f"{100 * k4_ms * layers / prefill_ms:.1f} % of prefill  "
           f"blocks={blocks}  max_abs_err={k4_err:.3e}  "
           f"rel_l2_err={k4_rel:.3e}  card: {smi}", flush=True)
-    entries = [{
-        "name": f"ssd[{arch} prefill B={PREFILL_B} S={PREFILL_S} H={H} "
-                f"P={P} N={N} L={L} x bf16]",
-        "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
-        "launches": launches["K4"], "max_abs_err": k4_call[0], "ms": k4_ms,
-        "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-        "library_ms": None, "rel_l2_err": k4_call[1], "blocks": blocks,
-        "f32_bound_ms": f32_bound, "scratch_bytes": scratch_bytes,
-        "prefill_ms": prefill_ms, "decode_step_ms": step_ms}]
-    del x, dtv, A, Bm, Cm, D, k4_args, y, want
-    if groups:
-        q, k, v = k2_args
-        e2 = k2_alone(q, k, v, arch, flush, rate, smi, calls=groups,
-                      prefill_ms=prefill_ms)
-        del q, k, v, k2_args
-        e3 = k3_alone(DECODE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt, gen,
-                      arch, flush, rate, smi)
-        entries += [
-            {"name": f"flash_attention[{arch} prefill B={PREFILL_B} "
-                     f"S={PREFILL_S} causal bf16]",
-             "launches": launches["K2"], **e2, "max_abs_err": k2_call[0],
-             "rel_l2_err": k2_call[1], "prefill_ms": prefill_ms},
-            {"name": f"flash_decode[{arch} B={DECODE_B} S={MAX_SEQ} "
-                     f"bf16 cache]",
-             "launches": dlaunches["K3"], **e3, "max_abs_err": k3_call[0],
-             "rel_l2_err": k3_call[1], "decode_step_ms": step_ms}]
+    return {"route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
+            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
+            "rel_l2_err": k4_rel, "blocks": blocks,
+            "f32_bound_ms": f32_bound, "scratch_bytes": scratch_bytes,
+            "prefill_ms": prefill_ms}
+
+
+def lm_check_finite(got, want, tag: str, rel_l2: float,
+                    max_abs: float) -> dict:
+    """``lm_check`` over the logits where the plain path ``want`` is
+    finite (a float16 path may overflow, the reference's too); the
+    kernel path's non-finite logits must be a subset of the plain
+    path's.  Adds the counts of non-finite logits of each path."""
+    ok, plain = torch.isfinite(got), torch.isfinite(want)
+    if got.shape != want.shape or bool((plain & ~ok).any()):
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite logits "
+                             f"where the plain path is finite")
+    m = ok & plain
+    return {**lm_check(got[m], want[m], tag, rel_l2, max_abs),
+            "non_finite": (int((~ok).sum()), int((~plain).sum()))}
+
+
+def serve_float16(dev, flush, rate: float, smi: str) -> list:
+    """The float16 serving paths at full width, ``attn_impl="pallas"``:
+    qwen3-0.6b (28 layers) prefill of 4 x 2048 (K2 x 28) and greedy
+    decode over bf16 caches (``init_caches``' default, as phase 6 runs
+    them: K3 x 28 a step) and, shorter, over float32 caches
+    (``greedy_decode``'s default); mamba2-130m (24 layers) prefill of
+    4 x 2048 (K4 x 24).  Each is driven once with the launch counts set
+    to 0 just before it and every kernel call held against its plain
+    version on its own inputs (float16 ``ATTN_TOL``, ``SSD_CALL_TOL``);
+    the logits against the plain path where it is finite; then K2, K3
+    and K4 alone in float16.  Returns their float16 entries of the
+    ``kernels`` line."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.ssd import kernel as k4
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.models import decode_step, init_caches, init_params
+    from repro_torch.models.lm import cast
+    from repro_torch.serve import bench as sb
+    from repro_torch.serve import greedy_decode, make_prefill_step
+
+    dt = torch.float16
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM_ARCH].replace(attn_impl="pallas", dtype="float16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = cast(init_params(gen, cfg, device=dev), dt)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(cfg, device=dev)
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_launch_counts()
+        logits, caches = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        k2_call = worst(calls["K2"])
+        del calls
+    if launches != {"K2": cfg.n_layers, "K3": 0, "K4": 0}:
+        raise AssertionError(f"float16 prefill: launches {launches}")
+    del caches
+    want, _ = make_prefill_step(cfg.replace(attn_impl="reference"),
+                                device=dev)(params, batch)
+    check = lm_check_finite(logits, want, "float16 prefill vs reference",
+                            **LM_TOL["float16"])
+    del want
+    prefill_ms = bench.event_ms(lambda: prefill(params, batch), flush,
+                                runs=5)
+    print(f"float16 {LM_ARCH} prefill B={PREFILL_B} S={PREFILL_S}: launches "
+          f"{launches}  every K2 call vs plain (max abs, rel L2) {k2_call}  "
+          f"logits vs reference {check}  prefill_ms={prefill_ms:.3f}  "
+          f"tokens/s={PREFILL_B * PREFILL_S / prefill_ms * 1e3:.0f}  "
+          f"card: {smi}", flush=True)
+
+    # greedy decode over bf16 caches, then (shorter) over float32 ones
+    prompt = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_PROMPT),
+                           generator=gen, device=dev)
+    ref_cfg = cfg.replace(attn_impl="reference")
+    decoded = {}
+    for cache_dt, steps in ((torch.bfloat16, DECODE_STEPS),
+                            (torch.float32, FP16_F32_CACHE_STEPS)):
+        seen = []
+        with contextlib.ExitStack() as stack:
+            calls = kernel_checks(stack)
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = greedy_decode(params, cfg, prompt, steps, MAX_SEQ,
+                                cache_dtype=cache_dt, device=dev,
+                                on_logits=seen.append)
+            torch.cuda.synchronize()
+            greedy_ms = (time.perf_counter() - t0) * 1e3
+            dlaunches = launch_counts()
+            k3_call = worst(calls["K3"])
+            del calls
+        n_steps = DECODE_PROMPT + steps - 1
+        if dlaunches != {"K2": 0, "K3": cfg.n_layers * n_steps, "K4": 0}:
+            raise AssertionError(f"float16 decode: launches {dlaunches}")
+        if out.shape != (DECODE_B, steps) or \
+                not bool(((out >= 0) & (out < cfg.vocab)).all()):
+            raise AssertionError(f"float16 decode: tokens {tuple(out.shape)} "
+                                 f"out of range")
+        feed = torch.cat([prompt, out[:, :-1]], dim=1)
+        caches = init_caches(ref_cfg, DECODE_B, MAX_SEQ, cache_dtype=cache_dt,
+                             device=dev)
+        lengths = torch.zeros((DECODE_B,), dtype=torch.int32, device=dev)
+        worst_step = {"rel_l2": 0.0, "max_abs_err": 0.0}
+        bad = 0
+        for t in range(n_steps):
+            lengths = lengths + 1
+            want = decode_step(params, feed[:, t], caches, lengths, ref_cfg)
+            c = lm_check_finite(seen[t], want, f"float16 decode step {t} vs "
+                                f"reference", **LM_TOL["float16"])
+            worst_step = {k: max(worst_step[k], c[k]) for k in worst_step}
+            bad += c["non_finite"][1]
+        del caches
+        cname = str(cache_dt).replace("torch.", "")
+        decoded[cname] = dlaunches["K3"]
+        print(f"float16 {LM_ARCH} decode B={DECODE_B} prompt={DECODE_PROMPT} "
+              f"steps={steps} max_seq={MAX_SEQ} {cname} caches: launches "
+              f"{dlaunches}  every K3 call vs plain {k3_call}  per-step "
+              f"logits vs reference {worst_step} (non-finite in the plain "
+              f"path: {bad})  greedy_ms={greedy_ms:.1f} ({n_steps} steps)  "
+              f"card: {smi}", flush=True)
+
+    # K2 alone at the prefill shape, K3 alone over a full 4096-position
+    # bf16 cache under float16 q (the main path's), in float16
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (torch.randn((PREFILL_B, PREFILL_S, h, D), generator=gen,
+                           device=dev).to(dt) for h in (H, KVH, KVH))
+    e2 = k2_alone(q, k, v, LM_ARCH, flush, rate, smi, calls=cfg.n_layers,
+                  prefill_ms=prefill_ms)
+    del q, k, v, params
+    e3 = k3_alone(DECODE_B, H, KVH, D, dt, gen, LM_ARCH, flush, rate, smi,
+                  cache_dt=torch.bfloat16)
+    entries = [
+        {"name": f"flash_attention[{LM_ARCH} prefill B={PREFILL_B} "
+                 f"S={PREFILL_S} causal float16]",
+         "launches": launches["K2"], **e2, "max_abs_err": k2_call[0],
+         "rel_l2_err": k2_call[1], "dtype": "float16",
+         "prefill_ms": prefill_ms},
+        {"name": f"flash_decode[{LM_ARCH} B={DECODE_B} S={MAX_SEQ} float16 "
+                 f"q bf16 cache]",
+         "launches": decoded["bfloat16"], **e3, "dtype": "float16",
+         "launches_f32_cache": decoded["float32"]}]
+
+    # mamba2-130m: prefill, every K4 call checked
+    arch, layers = SSM_PATHS[0]
+    cfg = ARCHS[arch].replace(attn_impl="pallas", n_layers=layers,
+                              dtype="float16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masters = init_params(gen, cfg, device=dev)
+    params = cast(masters, dt)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     generator=gen, device=dev)}
+    prefill = make_prefill_step(cfg, device=dev)
+    with contextlib.ExitStack() as stack:
+        calls = kernel_checks(stack)
+        zero_launch_counts()
+        logits, _ = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        k4_call = worst(calls["K4"])
+        _, k4_args, k4_kw, _ = calls["K4"][0]
+        del calls
+    if launches != {"K2": 0, "K3": 0, "K4": layers}:
+        raise AssertionError(f"float16 {arch} prefill: launches {launches}")
+    # the logits: finite where the plain path's are; their distance to
+    # the plain path printed, not gated: a random-weight Mamba2 stack
+    # amplifies rounding about 1.6x a layer, so two float16 paths
+    # decorrelate over 24 layers as two bf16 ones do (phase 8 prints
+    # theirs); the kernel calls are gated one by one above
+    plain = cfg.replace(attn_impl="chunked")
+    chunked, _ = make_prefill_step(plain, device=dev)(params, batch)
+    f32, _ = make_prefill_step(plain.replace(dtype="float32"),
+                               device=dev)(masters, batch)
+    check = lm_check_finite(logits, chunked, f"float16 {arch} prefill vs "
+                            f"chunked", rel_l2=math.inf, max_abs=math.inf)
+    spread = {"chunked_f16_vs_chunked_f32": sb.rel_l2(chunked, f32),
+              "kernel_f16_vs_chunked_f32": sb.rel_l2(logits, f32)}
+    del chunked, f32, masters
+    prefill_ms = bench.event_ms(lambda: prefill(params, batch), flush,
+                                runs=5)
+    print(f"float16 {arch} prefill B={PREFILL_B} S={PREFILL_S}: launches "
+          f"{launches}  every K4 call vs ssd_scan (max abs, rel L2) "
+          f"{k4_call}  logits vs chunked (printed) {check}  rel L2 "
+          f"{spread}  prefill_ms={prefill_ms:.3f}  "
+          f"card: {smi}", flush=True)
+    x = k4_args[0]
+    entries.append({
+        "name": f"ssd[{arch} prefill B={PREFILL_B} S={PREFILL_S} "
+                f"H={x.shape[2]} P={x.shape[3]} N={k4_args[3].shape[-1]} "
+                f"L={k4.chunk_len(PREFILL_S, k4_kw['chunk'])} x float16]",
+        "launches": launches["K4"],
+        **k4_alone(k4_args, k4_kw, arch, layers, prefill_ms, flush, rate,
+                   smi),
+        "max_abs_err": k4_call[0], "rel_l2_err": k4_call[1],
+        "dtype": "float16"})
+    print(f"float16 serving paths: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return entries
 
 
@@ -2889,12 +3229,12 @@ def main() -> int:
              for n, b in sorted(ALL_PROGRAMS.items())}
     calls = [c for kp in plans.values() for c in kp.calls if c.has_grid]
     t0 = time.perf_counter()
-    _, built = build.build([*(k1.job(c) for c in calls),
-                            *(k1.job(c, torch.bfloat16) for c in calls),
-                            k2.job(), k3.job(), k4.job()])
-    print(f"build: {len(calls)} stencil calls in float32 and in bf16 + "
-          f"flash attention + flash decode + ssd, {built} sources compiled in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _, built = build.build([*(k1.job(c, dt) for dt in K1_DTYPES
+                              for c in calls),
+                            k2.job(), *k3.jobs(), k4.job()])
+    print(f"build: {len(calls)} stencil calls in float32, bf16 and float16 "
+          f"+ flash attention + flash decode + ssd, {built} sources compiled "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
     hmma = {}
     for tag, kjob in (("K2", k2.job()), ("K4", k4.job())):
         hmma[tag] = build.sass_count(kjob, "HMMA")
@@ -2906,7 +3246,8 @@ def main() -> int:
                                  f"instruction")
     heat = next(c for c in plans["heat3d"].calls if c.has_grid)
     for tag, kjob in (("K4", k4.job()), ("K1 heat3d", k1.job(heat)),
-                      ("K1 heat3d bf16", k1.job(heat, torch.bfloat16))):
+                      ("K1 heat3d bf16", k1.job(heat, torch.bfloat16)),
+                      ("K1 heat3d float16", k1.job(heat, torch.float16))):
         print(f"build: {tag} resources (cuobjdump -res-usage):\n"
               f"{build.resource_usage(kjob)}", flush=True)
 
@@ -2932,17 +3273,18 @@ def main() -> int:
               + "  ".join(f"{o}: {e:.3e}" for o, e in zip(runs, errs)),
               flush=True)
 
-    # 3b. the same in bf16: Gates E and R, call by call and program by
-    # program; the accumulating programs over long sums
-    bf16_conformance(plans, dev)
+    # 3b. the same in bf16 and in float16: Gates E and R, call by call
+    # and program by program; the accumulating programs over long sums
+    for dtype in HALF_NAMES:
+        half_conformance(plans, dev, dtype)
 
     # 4. the main path at real size, then the plane-window calls, then
-    # the bf16 main path
+    # the bf16 and float16 main paths
     flush = bench.l2_flusher(dev)
     entries = [drive(n, dims, dev, flush, rate, smi)
                for n, dims in bench.MAIN_PATH + bench.PLANE_WINDOW_PATH]
-    entries += [drive(n, dims, dev, flush, rate, smi, torch.bfloat16)
-                for n, dims in BF16_PATH]
+    entries += [drive(n, dims, dev, flush, rate, smi, dtype)
+                for dtype in HALF_NAMES for n, dims in HALF_PATH]
 
     # 4b. the compiler's entry points and PlanServe, through K1
     entries += compiler_phase(dev, flush, rate, smi)
@@ -2968,6 +3310,10 @@ def main() -> int:
     # 8. the SSM main paths at full width
     for arch, layers in SSM_PATHS:
         entries += serve_ssm(arch, layers, dev, flush, rate, smi)
+
+    # 8c. the float16 serving paths at full width
+    entries += serve_float16(dev, flush, rate, smi)
+    torch.cuda.empty_cache()
 
     # 8b. the moe, encdec and vlm paths at full width
     t0 = time.perf_counter()

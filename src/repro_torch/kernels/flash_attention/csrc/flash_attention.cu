@@ -26,7 +26,7 @@
 // numbered so that the heaviest query tiles (the last, under a causal
 // mask) of every (batch, head) are launched first.
 //
-// bf16 inputs: tensor cores (attn_kernel_bf16).
+// bf16 and float16 inputs: tensor cores (attn_kernel_tc).
 // - Loads.  The query tile is copied once, K and V tiles of 64 keys go
 //   through a ring of two stages in shared memory, all by cp.async
 //   16-byte copies (cp.async.cg: L2 only), so the next tile's loads
@@ -70,6 +70,19 @@
 //   counts the function's 4 D flops per pair.  l sums the unrounded
 //   float32 p.  At D <= 80 the kernel is held to 168 registers, so three
 //   blocks share an SM.
+// - float16 (the same kernel, mma.sync f16): P in two float16 terms
+//   (FA_F16_TERMS).  float16 keeps 11 bits, and a residue below its
+//   smallest normal, 2^-14, keeps fewer, but P_lo only ever carries
+//   what P_hi dropped, at most 2^-12 p, so two terms leave an absolute
+//   error of at most 2^-25 a term against l >= 1.  Measured on an H100
+//   (scripts/attention_terms.py; random float16 q, k, v, causal; relative
+//   L2 to the plain version, which rounds the float32 result to float16
+//   once): S = 257, D = 64 / 128: one term 2.57e-4 / 2.42e-4, two
+//   1.03e-5 / 1.41e-5, three 1.04e-5 / 1.41e-5; S = 2048: one 2.63e-4 /
+//   2.59e-4, two 3.28e-5 / 2.41e-5, three 3.28e-5 / 2.40e-5; the
+//   float16 gate's relative L2 is 2.5e-4.  So one term misses it, a
+//   third gains nothing over two and costs 13-19 % more time at S =
+//   2048.
 // - What is left.  This is FlashAttention-2's design on mma.sync.  The
 //   path to SDPA's rate is Hopper's: wgmma with P from registers and K,
 //   V from shared memory through descriptors, TMA loads, a producer warp
@@ -88,13 +101,14 @@
 //
 // Layout.  q is read in place from (B, Sq, H, D) and k, v from
 // (B, Skv, KVH, D) through their strides (the last dim contiguous; for
-// bf16 every other stride and the base 16-byte aligned, which
+// bf16 and float16 every other stride and the base 16-byte aligned, which
 // fa_forward checks); the TPU kernel's transposes to (B*H, S, D) are full
 // copies on this card.  Query head h reads KV head h / (H / KVH).
 #ifdef HFAV_EMULATE
 #include "../../stencil2d/csrc/emulate.h"
 #else
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 // the block's dynamic shared memory (emulate.h defines it for the host)
 extern __shared__ __align__(16) float hfav_smem[];
@@ -178,6 +192,21 @@ inline unsigned pack_bf16(float lo, float hi) {
   return __float2bfloat16(lo).x | static_cast<unsigned>(__float2bfloat16(hi).x)
                                       << 16;
 }
+inline void mma_f16(float d[4], const unsigned a[4], unsigned b0,
+                    unsigned b1) {
+  const unsigned b[2] = {b0, b1};
+  hfav_mma_f16(d, a, b, d);
+}
+inline unsigned pack_f16(float lo, float hi) {
+  return __float2half_rn(lo).x | static_cast<unsigned>(__float2half_rn(hi).x)
+                                     << 16;
+}
+inline float f16_lo(unsigned w) {
+  return __half2float({static_cast<unsigned short>(w & 0xffffu)});
+}
+inline float f16_hi(unsigned w) {
+  return __half2float({static_cast<unsigned short>(w >> 16)});
+}
 #else
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -226,6 +255,28 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
+// d += A B in float16 operands, as mma_bf16
+__device__ __forceinline__ void mma_f16(float d[4], const unsigned a[4],
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats as float16 (round to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+// the two float16 halves of a packed pair as float32
+__device__ __forceinline__ float f16_lo(unsigned w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w)));
+}
+__device__ __forceinline__ float f16_hi(unsigned w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+}
 #endif
 
 // the two bf16 halves of a packed pair as float32
@@ -236,12 +287,50 @@ __device__ __forceinline__ float bf16_hi(unsigned w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
+// P's terms in float16 (the header comment gives the measurement)
+#ifndef FA_F16_TERMS
+#define FA_F16_TERMS 2
+#endif
+
+// The 16-bit element types of the tensor-core kernel: the product, two
+// floats packed as a pair (lo in the low half), a pair's halves as
+// float, and the terms P is split into.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int P_TERMS = 3;
+  static __device__ __forceinline__ void mma(float d[4], const unsigned a[4],
+                                             unsigned b0, unsigned b1) {
+    mma_bf16(d, a, b0, b1);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ float lo(unsigned w) { return bf16_lo(w); }
+  static __device__ __forceinline__ float hi(unsigned w) { return bf16_hi(w); }
+};
+template <>
+struct Elem<__half> {
+  static constexpr int P_TERMS = FA_F16_TERMS;
+  static __device__ __forceinline__ void mma(float d[4], const unsigned a[4],
+                                             unsigned b0, unsigned b1) {
+    mma_f16(d, a, b0, b1);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ float lo(unsigned w) { return f16_lo(w); }
+  static __device__ __forceinline__ float hi(unsigned w) { return f16_hi(w); }
+};
+
 // ---------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 and float16: tensor cores
 // ---------------------------------------------------------------------
 constexpr int TC_THREADS = 128;  // 4 warps, 16 query rows each
 
-// A tile of 64 rows of D bf16 in shared memory, 16-byte chunks swizzled.
+// A tile of 64 rows of D 16-bit values in shared memory, 16-byte chunks
+// swizzled.
 template <int D>
 struct Tile {
   static constexpr int NC = D / 8;  // chunks in a row
@@ -258,9 +347,8 @@ struct Tile {
 
 // cp.async rows row0 .. row0 + 63 of src (row stride `ld` elements) into
 // the tile dst; rows at or past `nrows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const __nv_bfloat16* src,
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const T* src,
                                           long long ld, long long row0,
                                           long long nrows) {
   using L = Tile<D>;
@@ -272,10 +360,11 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(TC_THREADS, D <= 80 ? 3 : 2)
-    attn_kernel_bf16(const Params p) {
+    attn_kernel_tc(const Params p) {
   using L = Tile<D>;
+  using E = Elem<T>;
   constexpr int KS = D / 16;  // k16 steps of Q K^T
   constexpr int NT = D / 8;   // n8 tiles of the output
   constexpr int SN = BKV / 8;  // n8 tiles of a score tile
@@ -286,14 +375,13 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 80 ? 3 : 2)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
   const Work w = block_work(p);
-  const __nv_bfloat16* const q =
-      static_cast<const __nv_bfloat16*>(p.q) + w.b * p.qs[0] + w.h * p.qs[2];
-  const __nv_bfloat16* const k = static_cast<const __nv_bfloat16*>(p.k) +
-                                 w.b * p.ks[0] + w.kvh * p.ks[2];
-  const __nv_bfloat16* const v = static_cast<const __nv_bfloat16*>(p.v) +
-                                 w.b * p.vs[0] + w.kvh * p.vs[2];
-  __nv_bfloat16* const o =
-      static_cast<__nv_bfloat16*>(p.o) + w.b * p.os[0] + w.h * p.os[2];
+  const T* const q =
+      static_cast<const T*>(p.q) + w.b * p.qs[0] + w.h * p.qs[2];
+  const T* const k =
+      static_cast<const T*>(p.k) + w.b * p.ks[0] + w.kvh * p.ks[2];
+  const T* const v =
+      static_cast<const T*>(p.v) + w.b * p.vs[0] + w.kvh * p.vs[2];
+  T* const o = static_cast<T*>(p.o) + w.b * p.os[0] + w.h * p.os[2];
   const float sl = p.scale * LOG2E;  // scores in the log2 domain
 
   float acc[NT][4];
@@ -347,8 +435,8 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 80 ? 3 : 2)
         unsigned b[4];
         ldmatrix_x4(b, Kt + L::off(8 * (j + lhalf) + (lane & 7),
                                    2 * kk + ((lane >> 3) & 1)));
-        mma_bf16(s[j], qf[kk], b[0], b[1]);
-        mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+        E::mma(s[j], qf[kk], b[0], b[1]);
+        E::mma(s[j + 1], qf[kk], b[2], b[3]);
       }
 
     // scale, mask, and each row's max
@@ -398,20 +486,21 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 80 ? 3 : 2)
         l[e / 2] += pe;  // this lane's part of the row sum, unrounded
       }
 
-    // O += P_hi V + P_mid V + P_lo V, one k16 step per two n8 score tiles
+    // O += P_hi V + P_mid V + P_lo V (float16: P_hi V + P_lo V), one k16
+    // step per two n8 score tiles
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      unsigned ph[3][4];  // P_hi, P_mid, P_lo
+      unsigned ph[E::P_TERMS][4];  // P_hi, (P_mid,) P_lo
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         // register x: rows g (x even) or g + 8 of score tile 2 kk + x / 2
         float a = s[2 * kk + x / 2][2 * (x % 2)];
         float b = s[2 * kk + x / 2][2 * (x % 2) + 1];
 #pragma unroll
-        for (int t = 0; t < 3; ++t) {  // each term the last one's residue
-          ph[t][x] = pack_bf16(a, b);
-          a -= bf16_lo(ph[t][x]);
-          b -= bf16_hi(ph[t][x]);
+        for (int t = 0; t < E::P_TERMS; ++t) {  // each the last's residue
+          ph[t][x] = E::pack(a, b);
+          a -= E::lo(ph[t][x]);
+          b -= E::hi(ph[t][x]);
         }
       }
 #pragma unroll
@@ -420,9 +509,9 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 80 ? 3 : 2)
         unsigned b[4];
         ldmatrix_x4_trans(b, Vt + L::off(16 * kk + lrow, n + lhalf));
 #pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          mma_bf16(acc[n], ph[t], b[0], b[1]);
-          mma_bf16(acc[n + 1], ph[t], b[2], b[3]);
+        for (int t = 0; t < E::P_TERMS; ++t) {
+          E::mma(acc[n], ph[t], b[0], b[1]);
+          E::mma(acc[n + 1], ph[t], b[2], b[3]);
         }
       }
     }
@@ -438,16 +527,16 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 80 ? 3 : 2)
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     const long long row = w.q0 + 16 * warp + g + 8 * r;
     if (row >= p.Sq) continue;
-    __nv_bfloat16* const orow = o + row * p.os[1] + 2 * t4;
+    T* const orow = o + row * p.os[1] + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<unsigned*>(orow + 8 * n) =
-          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+          E::pack(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
   }
 }
 
 template <int D>
-constexpr long long smem_bytes_bf16() {
+constexpr long long smem_bytes_tc() {
   return 5LL * Tile<D>::BYTES;  // Q, 2 stages of K, 2 of V
 }
 
@@ -639,23 +728,28 @@ int launch(Kernel kernel, const Params& p, int threads, long long smem,
 #endif
 }
 
+// dtype: 0 float32, 1 bf16, 2 float16
 template <int D>
-int launch_d(bool bf16, const Params& p, void* stream, long long* grids) {
-  if (bf16)
-    return launch(attn_kernel_bf16<D>, p, TC_THREADS, smem_bytes_bf16<D>(),
-                  stream, grids);
+int launch_d(long long dtype, const Params& p, void* stream,
+             long long* grids) {
+  if (dtype == 1)
+    return launch(attn_kernel_tc<__nv_bfloat16, D>, p, TC_THREADS,
+                  smem_bytes_tc<D>(), stream, grids);
+  if (dtype == 2)
+    return launch(attn_kernel_tc<__half, D>, p, TC_THREADS,
+                  smem_bytes_tc<D>(), stream, grids);
   return launch(attn_kernel_f32<D>, p, THREADS, smem_bytes_f32<D>(), stream,
                 grids);
 }
 
-int dispatch_d(long long D, bool bf16, const Params& p, void* stream,
+int dispatch_d(long long D, long long dtype, const Params& p, void* stream,
                long long* grids) {
   switch (D) {
-    case 16: return launch_d<16>(bf16, p, stream, grids);
-    case 32: return launch_d<32>(bf16, p, stream, grids);
-    case 64: return launch_d<64>(bf16, p, stream, grids);
-    case 80: return launch_d<80>(bf16, p, stream, grids);
-    case 128: return launch_d<128>(bf16, p, stream, grids);
+    case 16: return launch_d<16>(dtype, p, stream, grids);
+    case 32: return launch_d<32>(dtype, p, stream, grids);
+    case 64: return launch_d<64>(dtype, p, stream, grids);
+    case 80: return launch_d<80>(dtype, p, stream, grids);
+    case 128: return launch_d<128>(dtype, p, stream, grids);
     default: return -1;
   }
 }
@@ -675,12 +769,12 @@ bool aligned16(const Params& p) {
 
 }  // namespace fa
 
-// ptrs: q, k, v, o.  ints: dtype (0 float32, 1 bfloat16), B, Sq, Skv,
-// H, KVH, D, the (batch, seq, head) strides of q, k, v and o in
+// ptrs: q, k, v, o.  ints: dtype (0 float32, 1 bfloat16, 2 float16), B,
+// Sq, Skv, H, KVH, D, the (batch, seq, head) strides of q, k, v and o in
 // elements, causal, window (<= 0: none), q_offset.  grids receives the
 // blocks launched.  Returns 0, a CUDA error code, -1 for a head dim or
-// dtype it was not built for, or -2 for bf16 rows that are not 16-byte
-// aligned.
+// dtype it was not built for, or -2 for bf16 or float16 rows that are not
+// 16-byte aligned.
 extern "C" int fa_forward(void* const* ptrs, const long long* ints,
                           float scale, void* stream, long long* grids) {
   fa::Params p;
@@ -705,10 +799,10 @@ extern "C" int fa_forward(void* const* ptrs, const long long* ints,
   p.scale = scale;
   p.nq = (p.Sq + fa::BQ - 1) / fa::BQ;
   grids[0] = 0;
-  if (ints[0] == 0) return fa::dispatch_d(ints[6], false, p, stream, grids);
-  if (ints[0] == 1) {
+  if (ints[0] == 0) return fa::dispatch_d(ints[6], 0, p, stream, grids);
+  if (ints[0] == 1 || ints[0] == 2) {
     if (!fa::aligned16(p)) return -2;
-    return fa::dispatch_d(ints[6], true, p, stream, grids);
+    return fa::dispatch_d(ints[6], ints[0], p, stream, grids);
   }
   return -1;
 }
@@ -716,7 +810,8 @@ extern "C" int fa_forward(void* const* ptrs, const long long* ints,
 extern "C" const char* fa_error_string(int e) {
   if (e == -1) return "head dim or dtype not built";
   if (e == -2)
-    return "bf16 rows are read 16 bytes at a time: q, k, v and o need "
-           "16-byte aligned bases and (batch, seq, head) strides";
+    return "bf16 and float16 rows are read 16 bytes at a time: q, k, v "
+           "and o need 16-byte aligned bases and (batch, seq, head) "
+           "strides";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

@@ -3,13 +3,14 @@
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:flash_attention_fwd``.
 The CUDA C++ source is ``csrc/flash_attention.cu`` (its header comment
-gives the design and what bounds it): bf16 inputs go to a tensor-core
-kernel (``mma.sync``, P split in three bf16 terms so that P V keeps
-the float32 function's accuracy), float32 inputs to a scalar float32 kernel.
+gives the design and what bounds it): bf16 and float16 inputs go to a
+tensor-core kernel (``mma.sync``, P split in three bf16 or two float16
+terms so that P V keeps the float32 function's accuracy), float32 inputs
+to a scalar float32 kernel.
 It is built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`repro_torch.kernels.build`), loaded with ``ctypes`` and launched
-on PyTorch's current stream.  The bf16 kernel copies rows with 16-byte
-``cp.async``: q, k, v and o must have 16-byte aligned bases and
+on PyTorch's current stream.  The tensor-core kernel copies rows with
+16-byte ``cp.async``: q, k, v and o must have 16-byte aligned bases and
 (batch, seq, head) strides, or the wrapper raises.
 
 :func:`flash_attention_fwd` launches the kernel for CUDA tensors and
@@ -39,7 +40,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128)
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
+           torch.float16: 2}
 
 #: Kernel launches made by :func:`flash_attention_fwd`.
 launches = 0
@@ -114,8 +116,8 @@ def launch(lib, q, k, v, o, *, causal: bool, window: int | None,
            q_offset: int, scale: float, stream) -> int:
     """One launch of the kernel writing ``o`` on ``stream`` (a
     ``cudaStream_t`` as an int).  Returns the blocks it launched; raises
-    when refused (``ValueError`` for bf16 rows that are not 16-byte
-    aligned, which the library checks)."""
+    when refused (``ValueError`` for bf16 or float16 rows that are not
+    16-byte aligned, which the library checks)."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     ints = [_DTYPES[q.dtype], B, Sq, Skv, H, KVH, D]
@@ -148,8 +150,8 @@ def prepare(q, k, v, *, causal: bool, window: int | None, q_offset: int,
                          f"(or all on the CPU), got {q.device}, {k.device}, "
                          f"{v.device}")
     if q.dtype not in _DTYPES:
-        raise ValueError(f"flash attention builds for float32 and bfloat16, "
-                         f"not {q.dtype}")
+        raise ValueError(f"flash attention builds for float32, bfloat16 "
+                         f"and float16, not {q.dtype}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"flash attention builds for head dims {HEAD_DIMS}, "
                          f"not {q.shape[3]}")
@@ -172,8 +174,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset: int | None = None,
                         scale: float | None = None) -> torch.Tensor:
     """GQA attention forward: q (B, Sq, H, D), k and v (B, Skv, KVH, D),
-    float32 or bf16; returns (B, Sq, H, D) in q's dtype.  ``q_offset`` is
-    the position of q[0] on the kv axis (default ``Skv - Sq``)."""
+    float32, bf16 or float16; returns (B, Sq, H, D) in q's dtype.
+    ``q_offset`` is the position of q[0] on the kv axis (default
+    ``Skv - Sq``)."""
     global launches
     refuse_grad("flash attention (K2)", q, k, v)
     _check(q, k, v, window)

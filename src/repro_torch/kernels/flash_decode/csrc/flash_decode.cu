@@ -33,9 +33,10 @@
 // lengths (31 of a 4096-position cache) one split of each (b, kvh) works.
 //
 // Streaming.  A key row of D values is D / E 16-byte chunks (E = 8 bf16
-// or 4 float32); LPR lanes (the chunk count rounded up to a power of two)
-// take one row, chunk c on lane c, so a warp loads 32 / LPR whole rows
-// in one instruction with neighbouring lanes on neighbouring addresses.
+// or float16, 4 float32); LPR lanes (the chunk count rounded up to a
+// power of two) take one row, chunk c on lane c, so a warp loads 32 / LPR
+// whole rows in one instruction with neighbouring lanes on neighbouring
+// addresses.
 // Each lane keeps U rows of K and of V in flight in registers (an
 // unrolled register pipeline, no shared memory): it issues all 2U 16-byte
 // loads, then takes the U dot products with the group's query heads,
@@ -50,14 +51,19 @@
 // fd_decode checks); the TPU kernel's transpose of the caches to
 // (B, KVH, S, D) copies the whole cache on every call.
 //
-// Types.  q may be float32 or bf16, the caches float32 or bf16.  When q is
-// bf16 and the caches float32, each cached value is rounded to bf16 on
-// load, as the reference casts the caches to the compute dtype before
-// attending; all arithmetic is float32 and the output takes q's dtype.
+// Types.  q and the caches may each be float32, bf16 or float16.  When q
+// is bf16 or float16 and the caches are of another type, each cached
+// value is rounded to q's type on load, as the reference casts the caches
+// to the compute dtype before attending: a bf16 cache under float16 q
+// goes bf16 -> float16 -> float, so a value past 65504 becomes Inf and
+// one below 2^-14 a float16 subnormal, as in the reference (bf16 -> float
+// alone would be another function).  All arithmetic is float32 and the
+// output takes q's dtype.
 #ifdef HFAV_EMULATE
 #include "../../stencil2d/csrc/emulate.h"
 #else
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 // the block's dynamic shared memory (emulate.h defines it for the host)
 extern __shared__ float hfav_smem[];
@@ -82,33 +88,68 @@ struct Params {
   int* part_n;      // (B, KVH, nsplit): keys each split block held
   long long B, S, H, KVH, D, nsplit, window;  // window <= 0: none
   long long qs[2], ks[3], vs[3], os[2];
-  int q_bf16;  // q's dtype is bf16: float32 cached values round to bf16
+  int q_type;    // q's dtype: 0 float32, 1 bf16, 2 float16
+  int round_to;  // cached values rounded on load: 0 not, 1 bf16, 2 float16
   float scale;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+// x rounded to bf16 (mode 1) or float16 (mode 2), as float
+__device__ __forceinline__ float rounded(float x, int mode) {
+  return mode == 1 ? __bfloat162float(__float2bfloat16(x))
+                   : __half2float(__float2half_rn(x));
 }
 
-// The E values of a 16-byte chunk as float32.
-__device__ __forceinline__ void unpack(const uint4& c, float (&x)[8]) {
-  const unsigned w[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+// The float16 value of 16 bits
+__device__ __forceinline__ float f16_value(unsigned bits) {
+#ifdef HFAV_EMULATE
+  return __half2float({static_cast<unsigned short>(bits)});
+#else
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+#endif
 }
+
+// The two 16-bit values of a word (the first in the low half) as float32
+__device__ __forceinline__ void pair(const __nv_bfloat16*, unsigned w,
+                                     float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void pair(const __half*, unsigned w, float& lo,
+                                     float& hi) {
+  lo = f16_value(w & 0xffffu);
+  hi = f16_value(w >> 16);
+}
+
+// The E values of a 16-byte chunk of TC as float32.
+template <typename TC>
 __device__ __forceinline__ void unpack(const uint4& c, float (&x)[4]) {
   x[0] = __uint_as_float(c.x);
   x[1] = __uint_as_float(c.y);
   x[2] = __uint_as_float(c.z);
   x[3] = __uint_as_float(c.w);
 }
+template <typename TC>
+__device__ __forceinline__ void unpack(const uint4& c, float (&x)[8]) {
+  const unsigned w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    pair(static_cast<const TC*>(nullptr), w[i], x[2 * i], x[2 * i + 1]);
+}
 
 __device__ __forceinline__ float q_value(const Params& p, long long i) {
-  return p.q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[i])
-                  : static_cast<const float*>(p.q)[i];
+  if (p.q_type == 1)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[i]);
+  if (p.q_type == 2) return __half2float(static_cast<const __half*>(p.q)[i]);
+  return static_cast<const float*>(p.q)[i];
+}
+
+// An output value in q's type
+__device__ __forceinline__ void store(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* o, float v) {
+  *o = __float2half_rn(v);
 }
 
 // TC: the caches' element type; MG: the group size rounded up to a power
@@ -172,7 +213,7 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params p) {
                                               c * E + e) *
                                    p.scale
                              : 0.f;
-  const bool to_bf16 = p.q_bf16 && sizeof(TC) == 4;
+  const int to_q = p.round_to;
   const TC* const k = static_cast<const TC*>(p.k) + b * p.ks[0] +
                       kvh * p.ks[2] + lo * p.ks[1] + c * E;
   const TC* const v = static_cast<const TC*>(p.v) + b * p.vs[0] +
@@ -204,10 +245,10 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params p) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kv[E];
-      unpack(kr[u], kv);
-      if (to_bf16) {
+      unpack<TC>(kr[u], kv);
+      if (to_q) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) kv[e] = bf16_round(kv[e]);
+        for (int e = 0; e < E; ++e) kv[e] = rounded(kv[e], to_q);
       }
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
@@ -236,10 +277,10 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Params p) {
     for (int u = 0; u < U; ++u) {
       if (r0 + (u * WARPS + warp) * RPW + rg >= n) continue;
       float vv[E];
-      unpack(vr[u], vv);
-      if (to_bf16) {
+      unpack<TC>(vr[u], vv);
+      if (to_q) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) vv[e] = bf16_round(vv[e]);
+        for (int e = 0; e < E; ++e) vv[e] = rounded(vv[e], to_q);
       }
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
@@ -319,12 +360,8 @@ __global__ void __launch_bounds__(THREADS) combine_kernel(const Params p) {
       L += w * ml[2 * s + 1];
       A += w * acc[s * p.D + d];
     }
-    const float out = A / fmaxf(L, 1e-30f);
-    TQ* const o = static_cast<TQ*>(p.o) + b * p.os[0] + h * p.os[1] + d;
-    if constexpr (sizeof(TQ) == 2)
-      *o = __float2bfloat16(out);
-    else
-      *o = out;
+    store(static_cast<TQ*>(p.o) + b * p.os[0] + h * p.os[1] + d,
+          A / fmaxf(L, 1e-30f));
   }
 }
 
@@ -333,7 +370,9 @@ int launch(const Params& p, void* stream, long long* grids) {
   const long long nsplit_blocks = p.B * p.KVH * p.nsplit;
   const long long smem =
       WARPS * (p.H / p.KVH) * (D + 2) * (long long)sizeof(float);
-  auto combine = p.q_bf16 ? combine_kernel<__nv_bfloat16> : combine_kernel<float>;
+  auto combine = p.q_type == 1   ? combine_kernel<__nv_bfloat16>
+                 : p.q_type == 2 ? combine_kernel<__half>
+                                 : combine_kernel<float>;
   grids[0] = grids[1] = 0;
   if (p.B * p.H == 0) return 0;
 #ifdef HFAV_EMULATE
@@ -391,7 +430,8 @@ int dispatch_d(const Params& p, void* stream, long long* grids) {
 }  // namespace fd
 
 // ptrs: q, k_cache, v_cache, lengths (int32), o, part_ml, part_acc,
-// part_n.  ints: q dtype, cache dtype (0 float32, 1 bfloat16), B, S, H,
+// part_n.  ints: q dtype, cache dtype (0 float32, 1 bfloat16, 2
+// float16), B, S, H,
 // KVH, D, nsplit, window (<= 0: none), the (batch, head) strides of q
 // and o, the (batch, seq, head) strides of k and v, in elements.  grids
 // receives the blocks launched: split kernel, combine kernel.  Returns
@@ -426,16 +466,29 @@ extern "C" int fd_decode(void* const* ptrs, const long long* ints,
   p.scale = scale;
   grids[0] = grids[1] = 0;
   const long long tq = ints[0], tc = ints[1];
-  if ((tq != 0 && tq != 1) || (tc != 0 && tc != 1) || p.nsplit < 1) return -1;
-  p.q_bf16 = static_cast<int>(tq);
+  if (tq < 0 || tq > 2 || tc < 0 || tc > 2 || p.nsplit < 1) return -1;
+  p.q_type = static_cast<int>(tq);
+  p.round_to = tq != 0 && tc != tq ? static_cast<int>(tq) : 0;
   const long long step = tc ? 8 : 4;  // elements in 16 bytes
   const void* bases[2] = {p.k, p.v};
   for (const void* ptr : bases)
     if (reinterpret_cast<unsigned long long>(ptr) % 16) return -2;
   for (int a = 0; a < 3; ++a)
     if (p.ks[a] % step || p.vs[a] % step) return -2;
+  // FD_CACHE, where defined, builds the split kernels of one cache type
+  // (0 float32, 1 bf16, 2 float16): kernel.py builds one library a type,
+  // the three in parallel, where one nvcc over all of them would be the
+  // longest job of the port's build
+#if !defined(FD_CACHE) || FD_CACHE == 0
   if (tc == 0) return fd::dispatch_d<float>(p, stream, grids);
-  return fd::dispatch_d<__nv_bfloat16>(p, stream, grids);
+#endif
+#if !defined(FD_CACHE) || FD_CACHE == 1
+  if (tc == 1) return fd::dispatch_d<__nv_bfloat16>(p, stream, grids);
+#endif
+#if !defined(FD_CACHE) || FD_CACHE == 2
+  if (tc == 2) return fd::dispatch_d<__half>(p, stream, grids);
+#endif
+  return -1;
 }
 
 extern "C" const char* fd_error_string(int e) {

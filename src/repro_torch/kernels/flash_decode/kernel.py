@@ -9,7 +9,8 @@ kernel over (batch, head), launched together by one call.  The split
 count comes from the SM count and ``B * KVH`` alone (:func:`n_splits`),
 so a call reads nothing back from the device.  It is built with
 ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`),
-loaded with ``ctypes`` and launched on PyTorch's current stream.  The
+one library for each cache dtype, loaded with ``ctypes`` and launched on
+PyTorch's current stream.  The
 caches are read 16 bytes at a time: their bases and (batch, seq, head)
 strides must be 16-byte aligned, or the wrapper raises.
 
@@ -20,9 +21,11 @@ softmax with the kernel's sentinels (``NEG_INF = -1e30``, denominator
 clamped at ``1e-30``).  :data:`launches` counts its calls that launched
 the kernel pair.
 
-The compute dtype is q's.  When q is bf16 and the caches float32, both
-versions round the cached values to bf16 before attending, as the
-reference casts the caches to the compute dtype.
+The compute dtype is q's.  When q is bf16 or float16 and the caches of
+another type, both versions round the cached values to q's dtype before
+attending, as the reference casts the caches to the compute dtype (a
+bf16 cache under float16 q goes through float16: past 65504 it is Inf,
+below 2**-14 a float16 subnormal).
 """
 from __future__ import annotations
 
@@ -45,11 +48,12 @@ SMS = 132
 MAX_GROUP = 16
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_decode.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
+           torch.float16: 2}
 
 #: Calls of :func:`flash_decode` that launched the kernel.
 launches = 0
-_LIB: list[ctypes.CDLL] = []
+_LIB: dict[torch.dtype, ctypes.CDLL] = {}
 _SMS: dict[int, int] = {}  # SM count by device index
 
 
@@ -62,16 +66,25 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fd_error_string.restype = ctypes.c_char_p
 
 
-def job() -> build.Job:
-    """The build job of the kernel's library."""
-    return build.Job(SOURCE.read_text(), (), CSRC, _bind)
+def job(cache_dtype=torch.bfloat16) -> build.Job:
+    """The build job of the kernel's library for caches of
+    ``cache_dtype``: one library a cache type (``FD_CACHE``), so the
+    three build in parallel."""
+    return build.Job(f"#define FD_CACHE {_DTYPES[cache_dtype]}\n"
+                     + SOURCE.read_text(), (), CSRC, _bind)
 
 
-def library() -> ctypes.CDLL:
-    """The kernel's library, built on first use."""
-    if not _LIB:
-        _LIB.append(build.build([job()])[0][0])
-    return _LIB[0]
+def jobs() -> list[build.Job]:
+    """The build jobs of every cache type's library."""
+    return [job(dt) for dt in _DTYPES]
+
+
+def library(cache_dtype=torch.bfloat16) -> ctypes.CDLL:
+    """The kernel's library for caches of ``cache_dtype``, built on first
+    use."""
+    if cache_dtype not in _LIB:
+        _LIB[cache_dtype] = build.build([job(cache_dtype)])[0][0]
+    return _LIB[cache_dtype]
 
 
 def _check(q, k_cache, v_cache, lengths, window) -> None:
@@ -207,8 +220,8 @@ def prepare(q, k_cache, v_cache, lengths, *, window: int | None,
                          f"(or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
     if q.dtype not in _DTYPES or k_cache.dtype not in _DTYPES:
-        raise ValueError(f"flash decode builds for float32 and bfloat16, not "
-                         f"{q.dtype} / {k_cache.dtype}")
+        raise ValueError(f"flash decode builds for float32, bfloat16 and "
+                         f"float16, not {q.dtype} / {k_cache.dtype}")
     if q.shape[2] not in HEAD_DIMS:
         raise ValueError(f"flash decode builds for head dims {HEAD_DIMS}, "
                          f"not {q.shape[2]}")
@@ -220,7 +233,7 @@ def prepare(q, k_cache, v_cache, lengths, *, window: int | None,
     lengths = lengths.to(torch.int32).contiguous()
     B, S, KVH = k_cache.shape[:3]
     bufs = buffers(q, KVH, n_splits(B, KVH, S, sm_count(q.device)))
-    lib = library()
+    lib = library(k_cache.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def run() -> Launch:

@@ -40,9 +40,10 @@
 // float32 accumulator, and keeps the float32 function's accuracy by
 // 3xTF32: each float32 operand v splits into v_hi = tf32(v) and v_lo =
 // tf32(v - v_hi) (cvt.rna), and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi
-// (a_lo b_lo, about 2^-22 relative, is dropped).  A bf16 x is exact in
-// TF32 (8 mantissa bits in 10), so the products with x (pass 1's and
-// M X) need only a_lo x + a_hi x.  One TF32 product alone keeps about
+// (a_lo b_lo, about 2^-22 relative, is dropped).  A bf16 or float16 x is
+// exact in TF32 (8 or 10 mantissa bits in 10, and float16's exponent range
+// inside TF32's), so the products with x (pass 1's and M X) need only
+// a_lo x + a_hi x.  One TF32 product alone keeps about
 // 11 bits and misses SSD_TOL (chip_smoke.py); the decay, dt, its prefix
 // sum and the exponentials stay float32 on the CUDA cores.  Operand
 // tiles sit in shared memory with rows padded so that each fragment load
@@ -58,7 +59,8 @@
 // (head dim contiguous), dt (B, S, H) by its strides, Bm and Cm (B, S, N)
 // by their batch and sequence strides (state dim contiguous), so the
 // model's slices of its input projection are read in place.  x and y are
-// float32 or bf16; everything else is float32.
+// float32, bf16 or float16 (y written in x's type); everything else is
+// float32.
 //
 // What bounds it.  At mamba2-130m's prefill (B = 4, S = 2048, H = 24,
 // P = 64, N = 128, L = 256) the function needs about 15 GFLOP of float32
@@ -75,6 +77,7 @@
 #include "../../stencil2d/csrc/emulate.h"
 #else
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 // the block's dynamic shared memory (emulate.h defines it for the host)
 extern __shared__ float hfav_smem[];
@@ -108,9 +111,13 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* q, float v) { *q = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* q, float v) {
   *q = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* q, float v) {
+  *q = __float2half_rn(v);
 }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ int pad16(int n) {
@@ -637,10 +644,10 @@ int launch(const Params& p, void* stream, long long* grid) {
 // ptrs: x, dt, A, Bm, Cm, D, y, then float32 scratch: states (B, H, S /
 // L, N, P), decay (B, H, S / L), gram (B, S / L, pairs, 64, 64) with
 // pairs = n (n + 1) / 2 for n = ceil(L / 64).  ints: x/y dtype (0
-// float32, 1 bfloat16), B, S, H, P, N, L (a divisor of S), the (batch,
-// seq, head) strides of x, of dt and of y, and the (batch, seq) strides of
-// Bm and of Cm, in elements.  grid receives the blocks of the four
-// launches.  Returns 0, a CUDA error code, -1 for a dtype it was not built
+// float32, 1 bfloat16, 2 float16), B, S, H, P, N, L (a divisor of S), the
+// (batch, seq, head) strides of x, of dt and of y, and the (batch, seq)
+// strides of Bm and of Cm, in elements.  grid receives the blocks of the
+// four launches.  Returns 0, a CUDA error code, -1 for a dtype it was not built
 // for, or -2 for a shape it does not take (P > 64, N > 128, or L not
 // dividing S).
 extern "C" int ssd_forward(void* const* ptrs, const long long* ints,
@@ -676,6 +683,7 @@ extern "C" int ssd_forward(void* const* ptrs, const long long* ints,
     return -2;
   if (ints[0] == 0) return ssd::launch<float, false>(p, stream, grid);
   if (ints[0] == 1) return ssd::launch<__nv_bfloat16, true>(p, stream, grid);
+  if (ints[0] == 2) return ssd::launch<__half, true>(p, stream, grid);
   return -1;
 }
 

@@ -42,7 +42,8 @@ TILE = 64
 MAX_SMEM = 232448
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "ssd.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
+           torch.float16: 2}
 
 #: Calls of :func:`ssd_kernel` that launched the kernel.
 launches = 0
@@ -164,8 +165,8 @@ def prepare(x, dt, A, Bm, Cm, D, *, chunk: int):
                          f"device (or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"the ssd kernel builds for x in float32 and "
-                         f"bfloat16, not {x.dtype}")
+        raise ValueError(f"the ssd kernel builds for x in float32, "
+                         f"bfloat16 and float16, not {x.dtype}")
     for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if t.dtype != torch.float32:
             raise ValueError(f"the ssd kernel takes {name} in float32, not "

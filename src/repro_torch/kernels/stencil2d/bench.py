@@ -56,12 +56,13 @@ def hbm_rate(name: str) -> float:
 
 
 def make_inputs(name: str, kplan, dims: dict, seed: int, device,
-                bf16: bool = False) -> dict:
+                round_to=None) -> dict:
     """One seeded float32 array per axiom of ``kplan``, shaped by its
     extents at ``dims`` (loop dim -> size); hydro1d's density is kept
-    positive as in the repository's hydro benchmark.  ``bf16=True``
-    rounds each value to bf16 (kept float32, each value exact in both,
-    so a float64 run of the same inputs gives the exact value)."""
+    positive as in the repository's hydro benchmark.  ``round_to`` (bf16
+    or float16) rounds each value to that type (kept float32, each value
+    exact in both, so a float64 run of the same inputs gives the exact
+    value)."""
     rng = np.random.default_rng(seed)
     sizes = {sym: dims[d] for d, sym in kplan.dim_sizes}
     out = {}
@@ -72,7 +73,8 @@ def make_inputs(name: str, kplan, dims: dict, seed: int, device,
         if name == "hydro1d" and ax.array == "rho":
             a = a * a + 1.0
         t = torch.from_numpy(a)
-        out[ax.array] = (t.bfloat16().float() if bf16 else t).to(device)
+        out[ax.array] = (t.to(round_to).float() if round_to
+                         else t).to(device)
     return out
 
 

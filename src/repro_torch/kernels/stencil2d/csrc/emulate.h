@@ -12,8 +12,8 @@
 // Warps.  Threads 32w .. 32w + 31 of a block form warp w, with a barrier
 // of its own (__syncwarp) and one exchange slot per lane.  A warp
 // collective -- __shfl_xor_sync, ldmatrix (x4, plain or .trans), mma.sync
-// m16n8k16 bf16 and m16n8k8 tf32 -- writes each lane's operand to its
-// slot, meets the warp at its barrier, reads what it needs from the other
+// m16n8k16 bf16 and f16 and m16n8k8 tf32 -- writes each lane's operand to
+// its slot, meets the warp at its barrier, reads what it needs from the other
 // lanes' slots, and meets it again before any slot is reused; the operands go
 // in and come out in the fragment layouts of the PTX ISA, so a kernel's
 // fragment indexing is tested as written.
@@ -62,7 +62,8 @@ inline std::barrier<>* hfav_block_barrier = nullptr;
 // `extern __shared__ float hfav_smem[]`)
 alignas(16) float hfav_smem[232448 / sizeof(float)];
 // the NaN that fills what is undefined: a float NaN whose two halves are
-// bf16 NaNs too, so a bf16 element read before it is written shows
+// bf16 and float16 NaNs too, so a 16-bit element read before it is
+// written shows
 inline constexpr unsigned hfav_nan_bits = 0x7fc07fc0u;
 
 inline void __syncthreads() { hfav_block_barrier->arrive_and_wait(); }
@@ -136,6 +137,53 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 
 inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 
+// float16 as the card stores it (1 sign, 5 exponent and 10 mantissa
+// bits), with the conversions of cuda_fp16.h: float -> half rounds to
+// nearest even, to a subnormal below 2^-14 and to Inf past 65504 (from
+// 65520 on); NaN stays a quiet NaN.
+struct __half {
+  unsigned short x;
+};
+
+inline float __half2float(__half h) {
+  const unsigned s = static_cast<unsigned>(h.x & 0x8000u) << 16;
+  const unsigned e = (h.x >> 10) & 0x1fu, m = h.x & 0x3ffu;
+  if (e == 0) {  // zero or subnormal: m 2^-24, exact in float
+    float f = static_cast<float>(m) * 0x1p-24f;
+    unsigned u;
+    std::memcpy(&u, &f, sizeof u);
+    return __uint_as_float(u | s);
+  }
+  if (e == 0x1f) return __uint_as_float(s | 0x7f800000u | (m << 13));
+  return __uint_as_float(s | ((e + 112) << 23) | (m << 13));
+}
+
+inline __half __float2half_rn(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  const unsigned s = (u >> 16) & 0x8000u, a = u & 0x7fffffffu;
+  auto half = [s](unsigned v) {
+    return __half{static_cast<unsigned short>(s | v)};
+  };
+  if (a > 0x7f800000u) return half(0x7e00u | (a >> 13));  // NaN
+  if (a >= 0x477ff000u) return half(0x7c00u);              // Inf
+  if (a < 0x38800000u) {  // below 2^-14: a subnormal (or zero) of 2^-24
+    const unsigned e = a >> 23;
+    if (e < 102) return half(0);  // below 2^-25: rounds to zero
+    const unsigned m = (a & 0x7fffffu) | 0x800000u, sh = 126 - e;
+    unsigned r = m >> sh;
+    const unsigned rem = m & ((1u << sh) - 1), mid = 1u << (sh - 1);
+    if (rem > mid || (rem == mid && (r & 1u))) ++r;
+    return half(r);
+  }
+  unsigned r = (a >> 13) - (112u << 10);
+  const unsigned rem = a & 0x1fffu;
+  if (rem > 0x1000u || (rem == 0x1000u && (r & 1u))) ++r;
+  return half(r);
+}
+
+inline __half __float2half(float f) { return __float2half_rn(f); }
+
 inline const char* cudaGetErrorString(int) { return "emulated launch"; }
 #define cudaError_t int
 
@@ -200,19 +248,22 @@ inline void hfav_ldmatrix_x4(unsigned r[4], const void* row, bool trans) {
   __syncwarp();
 }
 
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: d = A B + c with
-// A 16 x 16, B 16 x 8, bf16 pairs packed low element first.  Lane l, with
-// g = l / 4 and t = l % 4, holds A rows g and g + 8 at columns 2t, 2t + 1
-// (registers 0, 1) and 2t + 8, 2t + 9 (registers 2, 3); B rows 2t, 2t + 1
-// (register 0) and 2t + 8, 2t + 9 (register 1) of column g; and c, d at
-// rows g (0, 1) and g + 8 (2, 3), columns 2t and 2t + 1.  Products are
-// exact in float32; the sum is taken in k order after c.
-inline void hfav_mma_bf16(float d[4], const unsigned a[4], const unsigned b[2],
-                          const float c[4]) {
+// mma.sync.aligned.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32:
+// d = A B + c with A 16 x 16, B 16 x 8, 16-bit pairs packed low element
+// first, each element read by `value` (bf16 or float16 to float).  Lane
+// l, with g = l / 4 and t = l % 4, holds A rows g and g + 8 at columns
+// 2t, 2t + 1 (registers 0, 1) and 2t + 8, 2t + 9 (registers 2, 3); B
+// rows 2t, 2t + 1 (register 0) and 2t + 8, 2t + 9 (register 1) of column
+// g; and c, d at rows g (0, 1) and g + 8 (2, 3), columns 2t and 2t + 1.
+// Products are exact in float32; the sum is taken in k order after c.
+template <typename Value>
+inline void hfav_mma_m16n8k16(float d[4], const unsigned a[4],
+                              const unsigned b[2], const float c[4],
+                              Value value) {
   unsigned ops[6] = {a[0], a[1], a[2], a[3], b[0], b[1]};
   hfav_publish(ops, sizeof ops);
-  auto lo = [](unsigned w) { return __uint_as_float(w << 16); };
-  auto hi = [](unsigned w) { return __uint_as_float(w & 0xffff0000u); };
+  auto lo = [&](unsigned w) { return value(w & 0xffffu); };
+  auto hi = [&](unsigned w) { return value(w >> 16); };
   float A[16][16], B[16][8];
   for (unsigned l = 0; l < 32; ++l) {
     unsigned o[6];
@@ -235,6 +286,20 @@ inline void hfav_mma_bf16(float d[4], const unsigned a[4], const unsigned b[2],
     for (unsigned k = 0; k < 16; ++k) s += A[row][k] * B[k][col];
     d[e] = s;
   }
+}
+
+inline void hfav_mma_bf16(float d[4], const unsigned a[4], const unsigned b[2],
+                          const float c[4]) {
+  hfav_mma_m16n8k16(d, a, b, c, [](unsigned v) {
+    return __bfloat162float({static_cast<unsigned short>(v)});
+  });
+}
+
+inline void hfav_mma_f16(float d[4], const unsigned a[4], const unsigned b[2],
+                         const float c[4]) {
+  hfav_mma_m16n8k16(d, a, b, c, [](unsigned v) {
+    return __half2float({static_cast<unsigned short>(v)});
+  });
 }
 
 // cvt.rna.tf32.f32: round to TF32 (10 explicit mantissa bits) to nearest,

@@ -61,24 +61,26 @@
 // does not wait a full memory latency.
 //
 // Element types.  The inputs, outputs and windows (rolling rows, plane
-// windows, the ring's copies) hold the call's element type, float or bf16
-// (__nv_bfloat16): where the Pallas kernel stores in its dtype.  The
-// arithmetic runs in float registers, and the locals that live in shared
-// memory, the accumulator rows, their per-block partial rows and the
-// device fold stay float: a bf16 result is rounded once, when the folded
-// row is written.  The Pallas kernel keeps a bf16 accumulator row and
-// rounds it at every row's combine, so a long sum stagnates
-// (normalization at 4096 x 2048 computed so is 42 % off the exact value
-// in relative L2, this kernel 0.18 %); no kernel whose blocks run in
-// parallel could repeat that order.  A bf16 row that starts or ends between two 4-byte words
-// takes its odd element with the element before it or with two bytes of
-// zeros after it (cp.async copies 4, 8 or 16 bytes).
+// windows, the ring's copies) hold the call's element type, float, bf16
+// (__nv_bfloat16) or float16 (__half): where the Pallas kernel stores in
+// its dtype.  The arithmetic runs in float registers, and the locals that
+// live in shared memory, the accumulator rows, their per-block partial
+// rows and the device fold stay float: a bf16 or float16 result is
+// rounded once, when the folded row is written.  The Pallas kernel keeps
+// an accumulator row in its dtype and rounds it at every row's combine,
+// so a long sum stagnates (normalization at 4096 x 2048 computed so in
+// bf16 is 42 % off the exact value in relative L2, this kernel 0.18 %);
+// no kernel whose blocks run in parallel could repeat that order.  A
+// 2-byte row that starts or ends between two 4-byte words takes its odd
+// element with the element before it or with two bytes of zeros after it
+// (cp.async copies 4, 8 or 16 bytes).
 #pragma once
 
 #ifdef HFAV_EMULATE
 #include "emulate.h"
 #else
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #endif
 #include <math.h>
@@ -96,7 +98,7 @@ struct Params {
   long long d[ND];
 };
 
-// A float as element type T (bf16 rounds to nearest even).
+// A float as element type T (bf16 and float16 round to nearest even).
 template <typename T>
 __device__ __forceinline__ T from_float(float v) {
   return v;
@@ -104,6 +106,10 @@ __device__ __forceinline__ T from_float(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Floor-mod slot rotation: robust to the negative positions of pipeline
@@ -140,11 +146,14 @@ __device__ __forceinline__ int shift4(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-// The same for bf16 rows: 8 elements a 16-byte piece.
+// The same for rows of a 2-byte type (bf16, float16): 8 elements a
+// 16-byte piece.
 __host__ __device__ __forceinline__ long long cap8(long long n) {
   return (n + 14) / 8 * 8;
 }
-__device__ __forceinline__ int shift8(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ int shift8(const T* p) {
+  static_assert(sizeof(T) == 2, "a 2-byte element type");
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
 }
 
@@ -231,17 +240,18 @@ __device__ __forceinline__ void issue_row(float* __restrict__ dst,
   }
 }
 
-// The same for a bf16 row, as 4-byte words: a row that starts between
-// two words copies the element before it too when that lies in the tensor
-// starting at `lo` (into the window row's margin), else its first element
-// by a plain load and store, which the ring's wait and barrier order as
-// they order the copies; a row that ends between two words copies its
-// last element and 2 bytes of zeros (into the margin).  No copy reads
-// outside the tensor.
-__device__ __forceinline__ void issue_row(__nv_bfloat16* __restrict__ dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int n, long long use_smem,
-                                          const __nv_bfloat16* lo) {
+// The same for a row of a 2-byte type (bf16, float16), as 4-byte words:
+// a row that starts between two words copies the element before it too
+// when that lies in the tensor starting at `lo` (into the window row's
+// margin), else its first element by a plain load and store, which the
+// ring's wait and barrier order as they order the copies; a row that ends
+// between two words copies its last element and 2 bytes of zeros (into
+// the margin).  No copy reads outside the tensor.
+template <typename T>
+__device__ __forceinline__ void issue_row(T* __restrict__ dst,
+                                          const T* __restrict__ src, int n,
+                                          long long use_smem, const T* lo) {
+  static_assert(sizeof(T) == 2, "a 2-byte element type");
   if (!use_smem) {
     for (int c = threadIdx.x; c < n; c += blockDim.x) dst[c] = __ldg(src + c);
     return;

@@ -37,8 +37,8 @@ tracer:
 
 Sizes are runtime parameters, so one source (and one build) serves
 every problem size of a plan.  The element type is not: a call's source
-is emitted for float32 or bf16 (:data:`ELEMENTS`), its windows and rows
-in that type, its arithmetic, locals and accumulators in float.
+is emitted for float32, bf16 or float16 (:data:`ELEMENTS`), its windows
+and rows in that type, its arithmetic, locals and accumulators in float.
 """
 from __future__ import annotations
 
@@ -60,7 +60,12 @@ SMEM_LIMIT = 232448
 H100_SMS = 132
 #: The element types the kernel stores, by torch dtype name: (C type,
 #: bytes).
-ELEMENTS = {"float32": ("float", 4), "bfloat16": ("__nv_bfloat16", 2)}
+ELEMENTS = {"float32": ("float", 4), "bfloat16": ("__nv_bfloat16", 2),
+            "float16": ("__half", 2)}
+#: The conversions of a 2-byte element type: (to float, from float,
+#: rounding to nearest even).
+CONVERSIONS = {"bfloat16": ("__bfloat162float", "__float2bfloat16_rn"),
+               "float16": ("__half2float", "__float2half_rn")}
 
 
 def dtype_name(dtype) -> str:
@@ -71,7 +76,7 @@ def dtype_name(dtype) -> str:
     if name not in ELEMENTS:
         raise PlanUnsupported(
             f"the CUDA stencil kernel builds for "
-            f"{' and '.join(ELEMENTS)}, not {name}")
+            f"{', '.join(ELEMENTS)}, not {name}")
     return name
 
 
@@ -769,19 +774,20 @@ def _lin(dims, sizes) -> str:
 
 def emit_source(call: CallPlan, dtype="float32") -> str:
     """The CUDA source of ``call``'s kernel for element type ``dtype``
-    (see the module docstring).  A bf16 source converts each element it
-    loads to float and rounds each value it stores to a window or an
-    output row; its float32 twin has no conversions."""
+    (see the module docstring).  A bf16 or float16 source converts each
+    element it loads to float and rounds each value it stores to a window
+    or an output row; its float32 twin has no conversions."""
     lay = CallLayout(call, dtype)
     et = ELEMENTS[lay.dtype][0]
-    bf16 = lay.dtype == "bfloat16"
+    half = lay.itemsize == 2  # a 2-byte element: bf16 or float16
+    to_float, from_float = CONVERSIONS.get(lay.dtype, (None, None))
     per = 16 // lay.itemsize  # elements a 16-byte piece
 
     def load(expr: str) -> str:
-        return f"__bfloat162float({expr})" if bf16 else expr
+        return f"{to_float}({expr})" if half else expr
 
     def store(expr: str) -> str:
-        return f"__float2bfloat16_rn({expr})" if bf16 else expr
+        return f"{from_float}({expr})" if half else expr
     n_out = call.n_outer
     nin = len(call.inputs)
     gs_ptr = nin + len(call.outputs)
@@ -888,7 +894,7 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
         w("")
     w(f"__global__ void __launch_bounds__({MAX_THREADS})")
     w("hfav_kernel(const hfav::Params<HFAV_NP, HFAV_ND"
-      + (f", {et}> P) {{" if bf16 else "> P) {"))
+      + (f", {et}> P) {{" if half else "> P) {"))
     w("  extern __shared__ __align__(16) float hfav_smem[];")
     for k, name in enumerate(lay.int_names):
         w(f"  const long long {name} = P.d[{k}];")
@@ -901,7 +907,7 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
         w(f"  const long long b{d} = blk % g{d};")
         w(f"  blk /= g{d};")
     w(f"  float* const gscratch = "
-      + (f"reinterpret_cast<float*>(P.p[{gs_ptr}]);" if bf16
+      + (f"reinterpret_cast<float*>(P.p[{gs_ptr}]);" if half
          else f"P.p[{gs_ptr}];"))
     w("  float* const fast = hfav::fast_scratch(hfav_smem, gscratch, "
       "use_smem, fast_floats);")
@@ -909,7 +915,7 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
         if key[0] == "shift":
             w(f"  int* const {fptr[key]} = reinterpret_cast<int*>(fast + "
               f"off_f{m});")
-        elif bf16 and key[0] in ("win", "plane", "pwin"):
+        elif half and key[0] in ("win", "plane", "pwin"):
             w(f"  {et}* const {fptr[key]} = reinterpret_cast<{et}*>(fast + "
               f"off_f{m});")
         else:
@@ -964,8 +970,8 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
         w("    {")
         w(f"      const {et}* const src = {src};")
         w(f"      const int sh = hfav::shift{per}(src);")
-        # a bf16 row may take the element before it, if in the tensor
-        tensor = f", P.p[{k}]" if bf16 else ""
+        # a 2-byte row may take the element before it, if in the tensor
+        tensor = f", P.p[{k}]" if half else ""
         if i.plane:
             key = ("plane", i.name)
             ih = height(i.j_hi - i.j_lo)

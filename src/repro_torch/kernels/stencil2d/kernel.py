@@ -31,18 +31,18 @@ built kernel (``hfav_occupancy``), so the launch is fixed at the first
 call, after the build.  Each block keeps its input rows a few row steps
 ahead in a ``cp.async`` ring.
 
-Each call builds for float32 or bf16 (one source and library each).  In
-bf16 the inputs, outputs and windows hold bf16, where the reference
-stores in its dtype, and the arithmetic runs in float; unlike the
-reference, the accumulators, their partial rows and the fold stay
-float32 and round once, when the folded row is written (the reference's
-bf16 accumulator row, rounded at every row, makes a long sum stagnate;
-see ``csrc/stencil2d.cuh``).
+Each call builds for float32, bf16 or float16 (one source and library
+each).  In bf16 and float16 the inputs, outputs and windows hold the
+2-byte type, where the reference stores in its dtype, and the arithmetic
+runs in float; unlike the reference, the accumulators, their partial
+rows and the fold stay float32 and round once, when the folded row is
+written (the reference's 2-byte accumulator row, rounded at every row,
+makes a long sum stagnate; see ``csrc/stencil2d.cuh``).
 
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
-refuses CPU tensors and any dtype but float32 and bf16; a failed build
-or launch raises.  :data:`launches` counts the launches made.
+refuses CPU tensors and any dtype but float32, bf16 and float16; a failed
+build or launch raises.  :data:`launches` counts the launches made.
 """
 from __future__ import annotations
 
@@ -228,7 +228,8 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     :meth:`CallLayout.concretize` sizes both for the fewest row steps in
     waves of the blocks an SM holds of the built kernel.  The kernel is
     built, and its launch fixed, at the first call.  ``dtype`` is
-    float32 or bf16; any other raises :class:`PlanUnsupported`."""
+    float32, bf16 or float16; any other raises
+    :class:`PlanUnsupported`."""
     dtype_name(dtype)  # raises PlanUnsupported for another dtype
     n_out = call.n_outer
     if len(sizes) != n_out + 2:
@@ -280,7 +281,7 @@ register_interpreter(InterpreterSpec(
     # the reference Pallas kernel's set: unit-stride reads only, no
     # LayoutApply constructs (kernel.py:511-512 of the JAX package)
     capabilities=STENCIL_CAPABILITIES,
-    dtypes=frozenset({torch.float32, torch.bfloat16}),
+    dtypes=frozenset({torch.float32, torch.bfloat16, torch.float16}),
     flags=frozenset({"chunk", "plane_chunk"}),
     description="hand-written CUDA stencil kernel for Hopper (sm_90a): "
                 "one emitted source per CallPlan over csrc/stencil2d.cuh",

@@ -597,8 +597,8 @@ def test_flash_decode_kernel_matches_plain_on_card(case, lens):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     # the case's own split count, as the emulated case runs it
     bufs = k3.buffers(q, KVH, k3.n_splits(B, KVH, S, sms))
-    res = k3.launch(k3.library(), q, kc, vc, lens, *bufs, window=window,
-                    scale=D ** -0.5,
+    res = k3.launch(k3.library(kc.dtype), q, kc, vc, lens, *bufs,
+                    window=window, scale=D ** -0.5,
                     stream=torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     _check_launch(res, case, lens.cpu())

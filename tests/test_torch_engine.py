@@ -67,13 +67,21 @@ def test_cuda_interpreter_refuses_cpu_tensors():
 
 
 def test_cuda_interpreter_is_float32_only():
+    """(Named before the kernel took 2-byte types.)  The CUDA interpreter
+    takes float32, bf16 and float16, as the reference's kernel takes any
+    float dtype, and refuses float64, naming the types it builds for."""
     gen = compile_program(ALL_PROGRAMS["laplace5"](), backend="interp_torch",
                           device="cpu")
-    with pytest.raises(PlanUnsupported, match="float32"):
+    with pytest.raises(PlanUnsupported,
+                       match=r"\[.torch.bfloat16., .torch.float16., "
+                             r".torch.float32.\], not torch.float64"):
         execute_plan(gen.kernel_plan, interpreter="cuda",
                      dtype=torch.float64, device="cpu")
-    with pytest.raises(PlanUnsupported, match="float32"):
-        k1.build_call(gen.kernel_plan.calls[0], (7, 20), torch.float16)
+    with pytest.raises(PlanUnsupported, match="float64"):
+        k1.build_call(gen.kernel_plan.calls[0], (7, 20), torch.float64)
+    fn, _ = k1.build_call(gen.kernel_plan.calls[0], (7, 20), torch.float16)
+    with pytest.raises(ValueError, match="CUDA tensors"):  # never a fallback
+        fn(torch.zeros((7, 20), dtype=torch.float16))
 
 
 @pytest.mark.parametrize("backend", ["auto", "jax"])

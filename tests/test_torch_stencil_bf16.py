@@ -214,16 +214,22 @@ def call_gates(calls, tag: str) -> None:
 # ---------------------------------------------------------------------------
 
 def test_cuda_declares_float32_and_bf16_and_refuses_the_rest():
-    assert get_interpreter("cuda").dtypes == {torch.float32, torch.bfloat16}
+    """K1 builds for float32, bf16 and float16 (the reference's kernel
+    takes any float dtype) and refuses float64, which no TPU kernel of
+    the reference runs."""
+    assert get_interpreter("cuda").dtypes == {torch.float32, torch.bfloat16,
+                                              torch.float16}
     call = next(c for c in _plan("laplace5").calls if c.has_grid)
-    for dt in (torch.float16, torch.float64):
-        with pytest.raises(PlanUnsupported, match=str(dt).split(".")[1]):
-            k1.build_call(call, (9, 37), dt)
-        with pytest.raises(PlanUnsupported, match=str(dt).split(".")[1]):
-            compile_program(ALL_PROGRAMS["laplace5"](), backend="cuda",
-                            dtype=dt, device="cpu")
-        with pytest.raises(PlanUnsupported, match=str(dt).split(".")[1]):
-            emit_source(call, dt)
+    assert "__half" in emit_source(call, torch.float16)
+    k1.build_call(call, (9, 37), torch.float16)  # builds at the first call
+    dt = torch.float64
+    with pytest.raises(PlanUnsupported, match="float64"):
+        k1.build_call(call, (9, 37), dt)
+    with pytest.raises(PlanUnsupported, match="float64"):
+        compile_program(ALL_PROGRAMS["laplace5"](), backend="cuda",
+                        dtype=dt, device="cpu")
+    with pytest.raises(PlanUnsupported, match="float64"):
+        emit_source(call, dt)
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
