@@ -12,7 +12,8 @@ Phases, each of which raises on failure:
 1. environment: torch, CUDA and nvcc versions, the card's name and
    power limit;
 2. build: every CallPlan of the 15 programs is emitted, in float32, in
-   bf16 and in float16, and built with one ``nvcc`` per source, all
+   bf16 and in float16, with K1's batched sources of the calls phase 4b
+   runs in a batch, and built with one ``nvcc`` per source, all
    started together; the tensor-core
    instructions of K2's and K4's libraries are counted (``cuobjdump
    -sass``, HMMA), and the run fails if either has none;
@@ -56,8 +57,8 @@ Phases, each of which raises on failure:
    included, must take ``"cuda"`` and launch K1), with K1's per-block
    bytes at that size; ``"auto"`` in bf16 and in float16 for hydro1d
    and normalization (K1, the bits of ``backend="cuda"``) and
-   ``compile_batched`` in both (hydro1d, B = 4, bit for bit its single
-   calls); the fused-source
+   ``compile_batched`` in both (hydro1d, B = 4, one launch of K1's
+   batched kernel, bit for bit its single calls); the fused-source
    emitter (``backend="torch"``)
    on all 15 programs against ``interp_torch`` on the card, then
    normalization and smooth_norm at 4096 x 2048 timed on the emitter
@@ -67,11 +68,19 @@ Phases, each of which raises on failure:
    ``interp_torch`` for cosmo, hydro1d, laplace5 and row_sum, the
    bit-exact rewrites held bit for bit; the on-disk plan cache (a warm
    compile runs no ``infer``, same bits, cold and warm compile times);
-   ``compile_batched`` on K1 at B = 4 for hydro1d and cosmo, bit for bit
-   against four single calls, timed both ways; PlanServe on K1 with 48
-   requests of mixed sizes over laplace5, hydro1d, normalization and
-   cosmo, every answer bit for bit against a per-example K1 call at its
-   true size, with its metrics; then two spawned workers over one
+   ``compile_batched`` on K1 at B = 4 for hydro1d (2048 x 4096), cosmo
+   and heat3d (64 x 512 x 512) and normalization (4096 x 2048, two
+   calls around a host step), through ``"cuda"`` and ``"auto"``: one
+   launch of K1's batched kernel per grid ``CallPlan`` for the whole
+   batch (the counterpart of the reference's ``vmap`` over
+   ``pallas_call``), bit for bit against four single calls, timed both
+   ways (end to end, and the batched launches' device time against the
+   four single calls' beside the batch's byte bound); PlanServe on K1
+   with 48 requests of mixed sizes over laplace5, hydro1d, normalization
+   and cosmo, one launch per grid ``CallPlan`` for each micro-batch
+   (counted and printed), every answer bit for bit against a
+   per-example K1 call at its true size, with its metrics; then two
+   spawned workers over one
    plan-cache directory, cold and then warm, their answers checked the
    same way;
 5. attention conformance: flash attention (K2) and flash decode (K3)
@@ -142,9 +151,9 @@ Phases, each of which raises on failure:
    alone beside their plain versions, bounds and SDPA;
 9. the ``kernels`` line (printed after phase 10): for each kernel and
    main path (K1's ``compile_batched`` and PlanServe paths of phase 4b
-   among them), its launches in one driven run (counts set to zero just
-   before it), its error against the plain version, its times and its
-   bound;
+   among them, with ``"batched": true`` and the batch width), its
+   launches in one driven run (counts set to zero just before it), its
+   error against the plain version, its times and its bound;
 10. training on the card (no kernel lies on the training path: the
    reference trains on ``attn_impl="chunked"``): (a) a smoke-width
    float32 train step of each of the six families on the card and on
@@ -366,10 +375,18 @@ CONSULT_PATH = (("laplace5", {"j": 256, "i": 16384}),
                 ("laplace5", {"j": 4096, "i": 24}))
 #: Programs run through LayoutApply on the plain interpreter.
 LAYOUT_PROGRAMS = ("cosmo", "hydro1d", "laplace5", "row_sum")
-#: compile_batched's batch and programs (main-path sizes).
+#: compile_batched's batch and programs (main-path sizes): hydro1d and
+#: cosmo, normalization (two calls around a reduction split with a host
+#: step: per-example folds) and heat3d (a call with plane windows).
 BATCH = 4
 BATCHED_PATH = (("hydro1d", {"j": 2048, "i": 4096}),
-                ("cosmo", {"k": 64, "j": 512, "i": 512}))
+                ("cosmo", {"k": 64, "j": 512, "i": 512}),
+                ("normalization", {"j": 4096, "i": 2048}),
+                ("heat3d", {"k": 64, "j": 512, "i": 512}))
+#: The batched programs also held against the plain version (the
+#: per-example loop on interp_torch) for the kernels line: those whose
+#: plain batch takes a few seconds on the card.
+BATCHED_PLAIN = ("hydro1d", "normalization")
 #: PlanServe's request stream: 48 requests in turn over the programs,
 #: 2-D sizes drawn from SERVE_2D per dimension, cosmo SERVE_PLANES planes
 #: of SERVE_COSMO x SERVE_COSMO, from a seeded generator.
@@ -888,11 +905,101 @@ def compile_program_plain(prog):
                            device="cpu").kernel_plan
 
 
+def grid_calls(kplan) -> int:
+    """The grid ``CallPlan``s of ``kplan``: the K1 launches of one call
+    of the program, single or batched."""
+    return sum(c.has_grid for c in kplan.calls)
+
+
+def batched_phase(plans: dict, dev, flush, rate: float, smi: str) -> list:
+    """Phase 4b's ``compile_batched`` on K1: each program of
+    ``BATCHED_PATH`` at B = 4 through ``"cuda"`` and ``"auto"``, one
+    launch of the batched kernel per grid ``CallPlan``, bit for bit
+    against four single calls; timed end to end both ways, the batched
+    launches' device time beside the four single calls' and the batch's
+    byte bound.  Returns the kernels line's entries (``BATCHED_PLAIN``,
+    held against the plain per-example loop)."""
+    from repro_torch.core import (ALL_PROGRAMS, compile_batched,
+                                  compile_program)
+    from repro_torch.kernels.stencil2d import bench
+    from repro_torch.kernels.stencil2d import kernel as k1
+
+    entries = []
+    for n, dims in BATCHED_PATH:
+        prog = ALL_PROGRAMS[n]()
+        calls = grid_calls(plans[n])
+        examples = [bench.make_inputs(n, plans[n], dims, 20 + b, dev)
+                    for b in range(BATCH)]
+        batch = {k: torch.stack([e[k] for e in examples])
+                 for k in examples[0]}
+        single = compile_program(prog, backend="cuda")
+        wants = [single.fn(**ex) for ex in examples]
+        outs = {}
+        for backend in ("cuda", "auto"):
+            bgen = compile_batched(prog, backend)
+            k1.launches = 0
+            out = bgen.fn(batch)
+            torch.cuda.synchronize()
+            launches = k1.launches
+            if launches != calls:
+                raise AssertionError(
+                    f"batched/{backend}/{n}: {launches} K1 launches for a "
+                    f"batch of {BATCH}, not one per grid CallPlan ({calls})")
+            for b, want in enumerate(wants):
+                for k in want:
+                    if not torch.equal(out[k][b], want[k]):
+                        raise AssertionError(f"batched/{backend}/{n}:{k}[{b}]"
+                                             f": differs from a single call")
+            outs[backend] = (bgen, launches)
+        bgen, launches = outs["cuda"]
+        batched_ms = bench.event_ms(lambda: bgen.fn(batch), flush,
+                                    runs=EMITTER_RUNS)
+        singles_ms = bench.event_ms(
+            lambda: [single.fn(**ex) for ex in examples], flush,
+            runs=EMITTER_RUNS)
+        _, records = bench.capture(lambda: bgen.fn(batch))
+        kernel_ms = sum(bench.kernel_ms(r, flush) for r in records)
+        singles_kernel_ms = 0.0
+        for ex in examples:
+            _, recs = bench.capture(lambda: single.fn(**ex))
+            singles_kernel_ms += sum(bench.kernel_ms(r, flush) for r in recs)
+        bound_ms = sum(bench.call_bytes(lay, run, args)
+                       for _, lay, run, args in records) / rate * 1e3
+        blocks = "+".join(str(run.nblocks) for _, _, run, _ in records)
+        shape = "x".join(map(str, (BATCH, *dims.values())))
+        line = (f"batched {n} {shape}: launches={launches} (auto "
+                f"{outs['auto'][1]}, one per grid CallPlan) of {blocks} "
+                f"blocks  bit-identical to {BATCH} single calls  "
+                f"batched_fn_ms={batched_ms:.4f}  singles_fn_ms="
+                f"{singles_ms:.4f}  kernel_ms={kernel_ms:.4f}  "
+                f"singles_kernel_ms={singles_kernel_ms:.4f}  bound_ms="
+                f"{bound_ms:.4f}")
+        if n in BATCHED_PLAIN:
+            # the kernels line's entry: every call held against the
+            # plain version (the per-example loop) on the same batch
+            plain = compile_batched(prog, "interp_torch", device=dev)
+            stats = timed_against_plain(n, bgen.fn, plain.fn, [batch],
+                                        flush, rate, "batched")
+            line += (f"  plain_ms={stats['plain_ms']:.1f}  err_vs_plain="
+                     f"{stats['max_abs_err']:.3e}")
+            entries.append({
+                "name": f"stencil2d[compile_batched {n} {shape}]",
+                "route": "cuda", "source": K1_SOURCE,
+                "replaces": K1_REPLACES, "launches": launches,
+                **stats, "bound_by": "bytes", "library_ms": None,
+                "batched": True, "batch": BATCH, "blocks": blocks,
+                "fn_ms": batched_ms, "singles_fn_ms": singles_ms,
+                "singles_kernel_ms": singles_kernel_ms})
+        print(line + f"  card: {smi}", flush=True)
+    return entries
+
+
 def half_entry_points(plans: dict, dev, dtype) -> None:
     """Phase 4b's bf16 and float16 checks: ``"auto"`` in ``dtype`` on the
     card takes K1 (``HALF_AUTO``) and gives the bits of
     ``backend="cuda"``; ``compile_batched`` in ``dtype`` through K1 at
-    B = 4 gives each example's single-call bits."""
+    B = 4 is one launch of the batched kernel per grid ``CallPlan`` and
+    gives each example's single-call bits."""
     from repro_torch.core import (ALL_PROGRAMS, Generated, compile_batched,
                                   compile_program)
     from repro_torch.kernels.stencil2d import bench
@@ -933,8 +1040,10 @@ def half_entry_points(plans: dict, dev, dtype) -> None:
     out = bgen.fn(batch)
     torch.cuda.synchronize()
     launches = k1.launches
-    if launches == 0:
-        raise AssertionError(f"batched/{half}/{n}: no K1 launch")
+    if launches != grid_calls(plans[n]):
+        raise AssertionError(f"batched/{half}/{n}: {launches} K1 launches "
+                             f"for a batch of {BATCH}, not one per grid "
+                             f"CallPlan ({grid_calls(plans[n])})")
     for b, ex in enumerate(examples):
         want = single.fn(**ex)
         for k in want:
@@ -959,8 +1068,7 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
 
     import repro_torch.core.engine as engine
     from repro_torch.core import (ALL_PROGRAMS, Generated, apply_layout,
-                                  clear_compile_cache, compile_batched,
-                                  compile_program)
+                                  clear_compile_cache, compile_program)
     from repro_torch.core.engine import smem_report
     from repro_torch.core.vecscan import auto_vec_reject
     from repro_torch.kernels import build
@@ -1132,52 +1240,7 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     # 5. compile_batched on K1, B = 4, against four single calls
-    for n, dims in BATCHED_PATH:
-        prog = ALL_PROGRAMS[n]()
-        examples = [bench.make_inputs(n, plans[n], dims, 20 + b, dev)
-                    for b in range(BATCH)]
-        batch = {k: torch.stack([e[k] for e in examples])
-                 for k in examples[0]}
-        bgen = compile_batched(prog, "cuda")
-        single = compile_program(prog, backend="cuda")
-        k1.launches = 0
-        out = bgen.fn(batch)
-        torch.cuda.synchronize()
-        launches = k1.launches
-        if launches == 0:
-            raise AssertionError(f"batched/{n}: no K1 launch")
-        for b, ex in enumerate(examples):
-            want = single.fn(**ex)
-            for k in want:
-                if not torch.equal(out[k][b], want[k]):
-                    raise AssertionError(f"batched/{n}:{k}[{b}]: differs "
-                                         f"from a single call")
-        batched_ms = bench.event_ms(lambda: bgen.fn(batch), flush,
-                                    runs=EMITTER_RUNS)
-        singles_ms = bench.event_ms(
-            lambda: [single.fn(**ex) for ex in examples], flush,
-            runs=EMITTER_RUNS)
-        shape = "x".join(map(str, (BATCH, *dims.values())))
-        line = (f"batched {n} {shape}: launches={launches}  bit-identical "
-                f"to {BATCH} single calls  batched_fn_ms={batched_ms:.4f}  "
-                f"singles_fn_ms={singles_ms:.4f}")
-        if n == BATCHED_PATH[0][0]:
-            # the kernels line's entry: every call held against the
-            # plain version on the same batch
-            plain = compile_batched(prog, "interp_torch", device=dev)
-            stats = timed_against_plain(n, bgen.fn, plain.fn, [batch],
-                                        flush, rate, "batched")
-            line += (f"  kernel_ms={stats['ms']:.4f}  plain_ms="
-                     f"{stats['plain_ms']:.1f}  bound_ms="
-                     f"{stats['bound_ms']:.4f}  err_vs_plain="
-                     f"{stats['max_abs_err']:.3e}")
-            entries.append({
-                "name": f"stencil2d[compile_batched {n} {shape}]",
-                "route": "cuda", "source": K1_SOURCE,
-                "replaces": K1_REPLACES, "launches": launches,
-                **stats, "bound_by": "bytes", "library_ms": None,
-                "fn_ms": batched_ms, "singles_fn_ms": singles_ms})
-        print(line + f"  card: {smi}", flush=True)
+    entries += batched_phase(plans, dev, flush, rate, smi)
 
     # 6. PlanServe on K1: 48 requests of mixed sizes, each answer equal
     # to a per-example K1 compile at its true size
@@ -1185,16 +1248,36 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
     reqs = serve_requests(dev)
     clear_compile_cache()
     k1.launches = 0
+    micro = []  # (program, requests, K1 launches) of each micro-batch
     with PlanServe(progs, max_batch=SERVE_MAX_BATCH) as srv:
         if srv.backend != "cuda":
             raise AssertionError(f"PlanServe's default backend on the card "
                                  f"is {srv.backend!r}")
+        execute = srv._execute
+
+        def counted(key, batch):  # the batcher's thread, one at a time
+            before = k1.launches
+            execute(key, batch)
+            micro.append((key[0], len(batch), k1.launches - before))
+
+        srv._execute = counted
         tickets = [(n, a, srv.submit(n, a)) for n, a in reqs]
         answers = [(n, a, t.result(600)) for n, a, t in tickets]
         snap = srv.metrics.snapshot()
     launches = k1.launches
     if launches == 0:
         raise AssertionError("planserve: no K1 launch")
+    for n, size, got in micro:
+        if got != grid_calls(plans[n]):
+            raise AssertionError(f"planserve/{n}: a micro-batch of {size} "
+                                 f"made {got} K1 launches, not one per grid "
+                                 f"CallPlan ({grid_calls(plans[n])})")
+    per_batch = {}
+    for n, size, got in micro:
+        per_batch.setdefault(n, []).append(f"{size}:{got}")
+    print(f"planserve micro-batches (requests:K1 launches) "
+          + "  ".join(f"{n} [{' '.join(v)}]"
+                      for n, v in sorted(per_batch.items())), flush=True)
     for n, a, out in answers:
         want = compile_program(progs[n], backend="cuda").fn(**a)
         for k in want:
@@ -1242,7 +1325,10 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
                 f"{', '.join(SERVE_PROGRAMS)}]",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, **stats, "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": None, "batched": True,
+        "micro_batches": len(micro),
+        "batch": max(size for _, size, _ in micro),
+        "launches_per_micro_batch": sorted({got for _, _, got in micro}),
         "timed": "the first request of each program, padded to its bucket",
         "requests_per_s": snap["requests_per_s"],
         "latency_ms_p50": snap["latency_ms"]["p50"],
@@ -3228,13 +3314,24 @@ def main() -> int:
                                 device=dev).kernel_plan
              for n, b in sorted(ALL_PROGRAMS.items())}
     calls = [c for kp in plans.values() for c in kp.calls if c.has_grid]
+    # K1's batched kernels of the calls phase 4b drives in a batch:
+    # compile_batched's programs and PlanServe's in float32, and the
+    # 2-byte compile_batched program in bf16 and float16
+    batched = [(c, torch.float32) for n in sorted(
+        {n for n, _ in BATCHED_PATH} | set(SERVE_PROGRAMS))
+        for c in plans[n].calls if c.has_grid]
+    batched += [(c, dt) for dt in HALF_NAMES
+                for c in plans[BATCHED_PATH[0][0]].calls if c.has_grid]
     t0 = time.perf_counter()
     _, built = build.build([*(k1.job(c, dt) for dt in K1_DTYPES
                               for c in calls),
+                            *(k1.job(c, dt, batched=True)
+                              for c, dt in batched),
                             k2.job(), *k3.jobs(), k4.job()])
-    print(f"build: {len(calls)} stencil calls in float32, bf16 and float16 "
-          f"+ flash attention + flash decode + ssd, {built} sources compiled "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {len(calls)} stencil calls in float32, bf16 and float16, "
+          f"{len(batched)} batched + flash attention + flash decode + ssd, "
+          f"{built} sources compiled in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     hmma = {}
     for tag, kjob in (("K2", k2.job()), ("K4", k4.job())):
         hmma[tag] = build.sass_count(kjob, "HMMA")
@@ -3245,7 +3342,11 @@ def main() -> int:
             raise AssertionError(f"{tag}'s library has no tensor-core "
                                  f"instruction")
     heat = next(c for c in plans["heat3d"].calls if c.has_grid)
+    hydro = next(c for c in plans["hydro1d"].calls if c.has_grid)
     for tag, kjob in (("K4", k4.job()), ("K1 heat3d", k1.job(heat)),
+                      ("K1 hydro1d", k1.job(hydro)),
+                      ("K1 hydro1d batched", k1.job(hydro, batched=True)),
+                      ("K1 heat3d batched", k1.job(heat, batched=True)),
                       ("K1 heat3d bf16", k1.job(heat, torch.bfloat16)),
                       ("K1 heat3d float16", k1.job(heat, torch.float16))):
         print(f"build: {tag} resources (cuobjdump -res-usage):\n"

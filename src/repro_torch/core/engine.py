@@ -321,9 +321,12 @@ def _emit_plan(kplan: KernelPlan, plan: Optional[StoragePlan], *,
     # PlanUnsupported for plans outside the declared feature set
     fn = execute_plan(kplan, interpreter=interpreter, dtype=dtype,
                       device=device, **options)
+    batch_fn = execute_plan(kplan, interpreter=interpreter, dtype=dtype,
+                            device=device, batched=True, **options) \
+        if spec.build_batched is not None else None
     gen = PallasGenerated(kplan, fn, plan, interpreter=interpreter,
                           device=device, base_plan=base_plan,
-                          layout_result=layout_result)
+                          layout_result=layout_result, batch_fn=batch_fn)
     if use_cache:
         _PLAN_CACHE[pkey] = gen
         while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
@@ -614,19 +617,31 @@ def compile_batched(
     (all of its keyword flags — ``dtype``, ``device``,
     ``plan_cache_dir``, ``dim_sizes``, build options … — pass through
     unchanged, so the on-disk plan cache and the in-memory caches behave
-    exactly as for unbatched compiles).  The batch is mapped by a loop
-    over the examples, each run through the single-example ``fn``, and
-    a ``torch.stack`` of their outputs, so the result is bit-identical
-    to per-example calls by construction.  There is no ``jit`` flag:
-    nothing is traced, and each example is its own launch of the
-    backend (the CUDA kernel has no batch grid axis)."""
+    exactly as for unbatched compiles).
+
+    Where the compiled interpreter declares a batched ``build_call``
+    (the CUDA kernel: ``"cuda"``, and ``"auto"`` where it routes there),
+    the batch runs as the reference's ``vmap`` runs it: one pass of the
+    host half over the whole batch and **one launch of the kernel per
+    grid** :class:`~repro_torch.core.plan.CallPlan`, whose grid holds
+    every example's blocks (the reference's ``pallas_call`` batching
+    rule gives its grid a leading batch axis).  Each example's bits are
+    its single call's.  A failed build or launch raises; nothing falls
+    back to running the examples one by one.  Elsewhere (the plain
+    ``"interp_torch"`` and the ``"torch"`` emitter, the batched kernel's
+    plain versions) the batch is a loop over the examples, each through
+    the single-example ``fn``, and a ``torch.stack`` of their outputs.
+    There is no ``jit`` flag: nothing is traced."""
     gen = compile_program(program, backend, **kwargs)
+    batch_fn = getattr(gen, "batch_fn", None)
 
     def fn(arrays: dict) -> dict:
         widths = {len(a) for a in arrays.values()}
         if len(widths) != 1 or 0 in widths:
             raise ValueError(f"batched inputs need one nonzero leading "
                              f"batch width, got {sorted(widths)}")
+        if batch_fn is not None:
+            return batch_fn(**arrays)
         outs = [gen.fn(**{k: a[b] for k, a in arrays.items()})
                 for b in range(widths.pop())]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

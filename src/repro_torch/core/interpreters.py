@@ -24,7 +24,12 @@ accumulators ``(1, width)``, kept-prefix accumulators
 ``(*grid[:n_kept], width)`` — because the host half here
 (:func:`execute_plan`: size resolution through axiom shape contracts,
 environment threading, and the :func:`assemble` trim/seat/lane-reduce
-rules) is shared by every interpreter verbatim.
+rules) is shared by every interpreter verbatim.  An interpreter that
+declares a ``build_batched`` runs a batch of examples (a leading batch
+axis on every array) through one host half and one launch of each call
+(:func:`execute_plan` with ``batched=True``): the counterpart of the
+reference's ``vmap`` of its host half, whose batching rule turns the
+Pallas call into one ``pallas_call`` with a leading batch grid axis.
 
 Capability or dtype mismatches raise the typed :class:`PlanUnsupported`
 (a :class:`~repro_torch.core.plan.PallasUnsupported` subclass); unknown
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -70,7 +75,15 @@ class InterpreterSpec:
     pass (:mod:`repro_torch.core.layoutapply`) writes (carried-vector
     slots, ``align_pad``, ``lane_block``); the engine runs the pass only
     for layout-aware interpreters (``"interp_torch"``), and the CUDA
-    kernel, like the reference's Pallas kernel, is not one."""
+    kernel, like the reference's Pallas kernel, is not one.
+
+    ``build_batched`` (optional, the same signature as ``build_call``)
+    concretizes a call over a batch: its ``fn`` takes every input with
+    one leading batch axis and returns every padded output with it, each
+    example's bits those of ``build_call``'s ``fn`` on that example.  The
+    CUDA kernel declares one (one launch a batch); an interpreter without
+    one runs a batch example by example
+    (:func:`repro_torch.core.engine.compile_batched`)."""
 
     name: str
     build_call: Callable = field(compare=False)
@@ -79,6 +92,7 @@ class InterpreterSpec:
     flags: frozenset = frozenset()
     description: str = ""
     layout_aware: bool = False
+    build_batched: Optional[Callable] = field(default=None, compare=False)
 
 
 _REGISTRY: dict[str, InterpreterSpec] = {}
@@ -342,14 +356,20 @@ def _seated(shape, seat, part) -> torch.Tensor:
 
 
 def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
-             n_outs: tuple[int, ...], *, lanes: bool = False):
+             n_outs: tuple[int, ...], *, lanes: bool = False,
+             batched: bool = False):
     """Map one padded device output back to its environment array: trim
     warm-up/drain rows and tiles, re-seat goal origins, lane-reduce
     accumulators whose vector dim was folded.  ``lanes=True`` stops
     before the lane reduction (and its seat): an accumulator's trimmed
     rows as the interpreter wrote them, which is how a kernel is held
-    against its plain version call by call."""
+    against its plain version call by call.  ``batched=True`` maps a
+    padded output with a leading batch axis to arrays with it, each
+    example as alone (the lane reduction is elementwise across the
+    examples)."""
     n_out = call.n_outer
+    b = (slice(None),) if batched else ()
+    lead = tuple(padded.shape[:1]) if batched else ()
     reduce_fn = call.fns[out.reduce_idx] if out.reduce_idx is not None \
         else None
     if lanes:
@@ -357,7 +377,7 @@ def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
     if out.kind == "acc":
         if out.n_kept:
             # (*kept grid tiles, width): one combined row per kept tile
-            part = padded[_outer_trim(out, call, n_outs, out.n_kept)]
+            part = padded[b + _outer_trim(out, call, n_outs, out.n_kept)]
             if reduce_fn is not None:
                 part = lane_reduce(reduce_fn, torch.movedim(part, -1, 0),
                                    out.reduce_init)
@@ -366,17 +386,20 @@ def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
                 for d in range(out.n_kept))
             if kept_exact:
                 return part
-            shape = tuple(n_outs[:out.n_kept]) + tuple(part.shape[out.n_kept:])
-            seat = _outer_seat(out, n_outs, out.n_kept) \
-                + (slice(None),) * (part.ndim - out.n_kept)
+            kept = len(lead) + out.n_kept
+            shape = lead + tuple(n_outs[:out.n_kept]) \
+                + tuple(part.shape[kept:])
+            seat = b + _outer_seat(out, n_outs, out.n_kept) \
+                + (slice(None),) * (part.ndim - kept)
             return _seated(shape, seat, part)
-        row = padded[0]
+        row = padded[b + (0,)]
         if reduce_fn is not None:
-            return lane_reduce(reduce_fn, row, out.reduce_init)
+            return lane_reduce(reduce_fn, torch.movedim(row, -1, 0),
+                               out.reduce_init)
         return row
     t0 = out.j_lo - (call.x_lo + out.lead)
     nrows = nj + out.j_hi - out.j_lo
-    otrim = _outer_trim(out, call, n_outs, n_out)
+    otrim = b + _outer_trim(out, call, n_outs, n_out)
     if out.kind == "acc_rows":
         # one identity-padded partial-accumulator row per grid step:
         # trim, fold the lanes, seat at the goal origin
@@ -385,11 +408,13 @@ def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
             return part
         vals = lane_reduce(reduce_fn, torch.movedim(part, -1, 0),
                            out.reduce_init)
-        return _seated((*n_outs, nj), _outer_seat(out, n_outs, n_out)
+        return _seated(lead + (*n_outs, nj),
+                       b + _outer_seat(out, n_outs, n_out)
                        + (slice(out.j_lo, nj + out.j_hi),), vals)
     if out.kind == "external":
         jlo, jhi = out.j_lo, nj + out.j_hi
-        return _seated((*n_outs, nj, ni), _outer_seat(out, n_outs, n_out)
+        return _seated(lead + (*n_outs, nj, ni),
+                       b + _outer_seat(out, n_outs, n_out)
                        + (slice(jlo, jhi), slice(None)),
                        padded[otrim + (slice(t0, t0 + nrows), slice(None))])
     w = ni + out.i_hi - out.i_lo
@@ -398,7 +423,8 @@ def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
 
 
 def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
-                 dtype=torch.float32, device=None, **options):
+                 dtype=torch.float32, device=None, batched: bool = False,
+                 **options):
     """Build the host callable executing a full :class:`KernelPlan` on
     the named registered interpreter.
 
@@ -413,9 +439,24 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
     so a plan outside the interpreter's declared feature set or dtypes
     raises :class:`PlanUnsupported` before anything builds.
     ``options`` are forwarded to ``build_call``, which runs once per
-    call and problem size (its callable is kept for later calls)."""
+    call and problem size (its callable is kept for later calls).
+
+    ``batched=True`` builds the host half of a batch: every external
+    array carries one leading batch axis (sizes come from the rest of
+    its shape), and the host half runs once over the batch -- the
+    arrays' moves, the lane passes, the host steps (0-dim bodies, so
+    elementwise over the examples) and the output assembly -- with one
+    call of each :class:`CallPlan`'s ``build_batched`` callable, and
+    returns every goal with the leading axis, each example's bits those
+    of the unbatched host half on it.  Raises ``ValueError`` for an
+    interpreter that declares no ``build_batched``."""
     spec = get_interpreter(interpreter)
     check_capabilities(spec, kplan, dtype)
+    if batched and spec.build_batched is None:
+        raise ValueError(f"interpreter {spec.name!r} declares no batched "
+                         f"build_call")
+    build = spec.build_batched if batched else spec.build_call
+    lead = 1 if batched else 0
     unknown = set(options) - spec.flags
     if unknown:
         raise TypeError(f"interpreter {spec.name!r} takes no build "
@@ -437,7 +478,7 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
             for axis, d in enumerate(ax.dims):
                 e = ext.get(d)
                 if e is not None and e[0] not in sizes:
-                    sizes[e[0]] = arr.shape[axis] - (e[2] - e[1])
+                    sizes[e[0]] = arr.shape[lead + axis] - (e[2] - e[1])
         nj = sizes[dim_sym[jdim]]
         ni = sizes[dim_sym[inner]]
         n_outs = tuple(sizes[dim_sym[d]] for d in outer_dims)
@@ -445,6 +486,7 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
             name: as_tensor(arrays[name], dtype, device)
             for name in input_names
         }
+        batch = (env[input_names[0]].shape[0],) if batched else ()
         for p in kplan.pre_passes:
             env[p.array] = _lane_permute(env[p.array], p)
         for ci, cp in enumerate(kplan.calls):
@@ -453,21 +495,21 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
             if cp.has_grid:
                 key = (ci, n_outs, nj, ni)
                 if key not in built:
-                    built[key] = spec.build_call(cp, (*n_outs, nj, ni),
-                                                 dtype, device=device,
-                                                 **options)[0]
+                    built[key] = build(cp, (*n_outs, nj, ni), dtype,
+                                       device=device, **options)[0]
                 pcall = built[key]
                 args = []
                 for ispec in cp.inputs:
                     v = as_tensor(env[ispec.name], dtype, device)
                     if ispec.scalar:
-                        v = v.reshape((1, 1))
+                        v = v.reshape(batch + (1, 1))
                     args.append(v)
                 padded = pcall(*args)
                 if not isinstance(padded, (list, tuple)):
                     padded = [padded]
                 for out, pout in zip(cp.outputs, padded):
-                    env[out.name] = assemble(cp, out, pout, nj, ni, n_outs)
+                    env[out.name] = assemble(cp, out, pout, nj, ni, n_outs,
+                                             batched=batched)
             for hs in cp.host_post:
                 _run_host(cp, hs, env)
         for p in kplan.post_passes:

@@ -561,7 +561,10 @@ class PallasGenerated:
     LayoutApply pass (the one the on-disk plan cache stores),
     ``layout_result`` what the pass did (``None`` when it did not run)
     and ``vec_report`` the vectorization report a compilation asked
-    for."""
+    for.  ``batch_fn``, where the interpreter declares a batched
+    ``build_call``, is ``fn`` over a leading batch axis of every array
+    (one host half and one launch of each call for the batch), else
+    ``None``."""
 
     kernel_plan: KernelPlan
     fn: Callable
@@ -571,6 +574,7 @@ class PallasGenerated:
     base_plan: Optional[KernelPlan] = None
     layout_result: Optional[object] = None
     vec_report: Optional[object] = None
+    batch_fn: Optional[Callable] = None
 
     @property
     def calls(self) -> tuple[CallPlan, ...]:

@@ -148,7 +148,7 @@ def call_bytes(lay, run, args) -> int:
     size), each output written once in the reference contract's shape
     and the call's element type -- row outputs ``(*grid, steps_j, Ni)``,
     accumulators ``(*grid[:n_kept], w)``, not the kernel's per-chunk
-    partial rows."""
+    partial rows; a batched launch's for each of its examples."""
     out = 0
     for o in lay.call.outputs:
         if o.acc is None:
@@ -157,7 +157,7 @@ def call_bytes(lay, run, args) -> int:
             a = next(a for a in lay.call.accs if a.name == o.acc)
             out += math.prod(run.gsz[:a.n_kept]) * (run.ni + a.w_off)
     return sum(t.numel() * t.element_size() for t in args) \
-        + lay.itemsize * out
+        + lay.itemsize * out * max(run.batch, 1)
 
 
 def kernel_ms(record, flush) -> float:

@@ -3,7 +3,8 @@
 // SSD scan), so the kernels' index, slot, chunk, tile, fragment and
 // ownership logic can be compiled with a host C++ compiler (g++
 // -std=c++20 -DHFAV_EMULATE) and tested on a machine without a GPU.
-// Blocks run one after another; the threads of a block are host threads
+// Blocks run one after another (block 0 first, or in the order of a
+// stride set by the test: hfav_block_stride); the threads of a block are host threads
 // that meet at a std::barrier in __syncthreads(), so a missing barrier
 // shows up as a wrong result, and each block's shared memory starts as
 // NaNs, so does a read of a word no thread of the block wrote.  Never
@@ -34,6 +35,7 @@
 #include <cstring>
 #include <deque>
 #include <iterator>
+#include <numeric>
 #include <thread>
 #include <vector>
 
@@ -58,6 +60,11 @@ inline thread_local hfav_dim threadIdx;
 inline hfav_dim blockIdx;
 inline hfav_dim blockDim;
 inline std::barrier<>* hfav_block_barrier = nullptr;
+// Blocks of a launch of n run in the order b * stride mod n (the stride
+// moved up to the next one prime to n): 1 runs them in order, another
+// interleaves them, as the card may, so that a block that waits for no
+// other to finish, but must, shows.
+inline long long hfav_block_stride = 1;
 // the block's dynamic shared memory (the emitted kernels declare it
 // `extern __shared__ float hfav_smem[]`)
 alignas(16) float hfav_smem[232448 / sizeof(float)];
@@ -409,8 +416,10 @@ int emulate_launch(Kernel kernel, const Params& prm, long long nblocks,
   blockDim.x = static_cast<unsigned>(threads);
   std::vector<hfav_slot> slots(threads);
   hfav_slots = slots.data();
+  long long stride = hfav_block_stride;
+  while (nblocks > 0 && std::gcd(stride, nblocks) != 1) ++stride;
   for (long long b = 0; b < nblocks; ++b) {
-    blockIdx.x = static_cast<unsigned>(b);
+    blockIdx.x = static_cast<unsigned>(b * stride % nblocks);
     // a block finds no value of an earlier block in shared memory: every
     // word starts as a NaN, so a read before a write shows in the result
     std::fill(std::begin(hfav_smem), std::end(hfav_smem),

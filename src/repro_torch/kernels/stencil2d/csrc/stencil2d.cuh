@@ -409,6 +409,33 @@ __device__ __forceinline__ float* fast_scratch(float* smem, float* gscratch,
   return use_smem ? smem : gscratch + (long long)blockIdx.x * per_block;
 }
 
+// The same for block `blk` of an example of a batched launch (the
+// example's own global scratch).
+__device__ __forceinline__ float* fast_scratch(float* smem, float* gscratch,
+                                               long long use_smem,
+                                               long long per_block,
+                                               long long blk) {
+  return use_smem ? smem : gscratch + blk * per_block;
+}
+
+// A batched launch runs the blocks of a single call once for each
+// example, example by example (the outermost factor of the grid).  Its
+// parameters are a single call's, each pointer at the first example,
+// followed by the bytes each pointer advances from one example to the
+// next; this gives example `ex`'s: every input, output, scratch and
+// ticket of a single call on that example.
+template <int ND, int NP, int NB, typename T>
+__device__ __forceinline__ Params<NP, ND, T> example(
+    const Params<NP, NB, T>& batch, long long ex) {
+  static_assert(NB == ND + NP, "one stride a pointer");
+  Params<NP, ND, T> e;
+  for (int i = 0; i < NP; ++i)
+    e.p[i] = reinterpret_cast<T*>(reinterpret_cast<char*>(batch.p[i]) +
+                                  ex * batch.d[ND + i]);
+  for (int i = 0; i < ND; ++i) e.d[i] = batch.d[i];
+  return e;
+}
+
 // Launch one emitted kernel: sets the dynamic shared-memory limit when a
 // launch needs more than the default 48 KB, launches on the caller's
 // stream, and returns cudaGetLastError() (0 when the launch was taken).
@@ -460,8 +487,19 @@ int occupancy(Kernel kernel, int threads, long long smem_bytes) {
 
 }  // namespace hfav
 
+// The emulation's block order (emulate.h), set by the tests.
+#ifdef HFAV_EMULATE
+#define HFAV_EMULATE_ENTRY_POINTS                                          \
+  extern "C" void hfav_emulate_block_stride(long long s) {                 \
+    hfav_block_stride = s;                                                 \
+  }
+#else
+#define HFAV_EMULATE_ENTRY_POINTS
+#endif
+
 // The entry points every emitted source defines through this macro.
 #define HFAV_ENTRY_POINTS(KERNEL, NP, ND)                                  \
+  HFAV_EMULATE_ENTRY_POINTS                                                \
   extern "C" int hfav_launch(void** ptrs, const long long* ints,          \
                              long long nblocks, int threads,              \
                              long long smem_bytes, void* stream) {        \

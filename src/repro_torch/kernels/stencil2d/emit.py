@@ -383,6 +383,9 @@ class Launch:
     resident: int = 1
     waves: int = 1
     tickets: int = 1
+    #: examples of a batched launch (``kernel.batch_launch``); 0 for a
+    #: single call
+    batch: int = 0
 
 
 #: Global scratch the planner of a plane-window launch may ask for when
@@ -772,11 +775,20 @@ def _lin(dims, sizes) -> str:
     return expr
 
 
-def emit_source(call: CallPlan, dtype="float32") -> str:
+def emit_source(call: CallPlan, dtype="float32",
+                batched: bool = False) -> str:
     """The CUDA source of ``call``'s kernel for element type ``dtype``
     (see the module docstring).  A bf16 or float16 source converts each
     element it loads to float and rounds each value it stores to a window
-    or an output row; its float32 twin has no conversions."""
+    or an output row; its float32 twin has no conversions.
+
+    ``batched=True`` gives the kernel of a batch of examples in one
+    launch: the blocks of a single call once for each example, the
+    example the outermost factor of the grid.  Its parameters are a
+    single call's followed by the bytes each pointer advances from one
+    example to the next (``hfav::example``); each example's blocks run
+    the single call's code on that example's operands, global scratch
+    and fold tickets, so each example's bits are its single call's."""
     lay = CallLayout(call, dtype)
     et = ELEMENTS[lay.dtype][0]
     half = lay.itemsize == 2  # a 2-byte element: bf16 or float16
@@ -882,23 +894,39 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
 
     out = []
     w = out.append
-    w(f"// HFAV stencil kernel for CallPlan {call.name!r}; emitted by")
+    w(f"// HFAV stencil kernel for CallPlan {call.name!r}"
+      + (", over a batch of examples" if batched else "") + "; emitted by")
     w("// repro_torch/kernels/stencil2d/emit.py, machinery in stencil2d.cuh.")
     w('#include "stencil2d.cuh"')
     w("")
     w(f"#define HFAV_NP {lay.n_ptrs}")
     w(f"#define HFAV_ND {len(lay.int_names)}")
+    if batched:
+        w("#define HFAV_NB (HFAV_ND + HFAV_NP)")
     w("")
     for k in sorted(bodies):
         w(bodies[k])
         w("")
+    etype = f", {et}" if half else ""
     w(f"__global__ void __launch_bounds__({MAX_THREADS})")
-    w("hfav_kernel(const hfav::Params<HFAV_NP, HFAV_ND"
-      + (f", {et}> P) {{" if half else "> P) {"))
+    if batched:
+        w(f"hfav_kernel(const hfav::Params<HFAV_NP, HFAV_NB{etype}> PB) {{")
+    else:
+        w(f"hfav_kernel(const hfav::Params<HFAV_NP, HFAV_ND{etype}> P) {{")
     w("  extern __shared__ __align__(16) float hfav_smem[];")
+    if batched:
+        # the block's example, and that example's operands
+        w(f"  const long long ex = blockIdx.x / PB.d["
+          f"{lay.int_names.index('nblocks')}];")
+        w(f"  const hfav::Params<HFAV_NP, HFAV_ND{etype}> P = "
+          f"hfav::example<HFAV_ND>(PB, ex);")
     for k, name in enumerate(lay.int_names):
         w(f"  const long long {name} = P.d[{k}];")
-    w("  long long blk = blockIdx.x;")
+    # the block within its example
+    bid = "bid" if batched else "blockIdx.x"
+    if batched:
+        w("  const long long bid = blockIdx.x % nblocks;")
+    w(f"  long long blk = {bid};")
     w("  const long long chunk = blk % nchunks;")
     w("  blk /= nchunks;")
     w("  const long long pchunk = blk % npchunks;")
@@ -910,7 +938,7 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
       + (f"reinterpret_cast<float*>(P.p[{gs_ptr}]);" if half
          else f"P.p[{gs_ptr}];"))
     w("  float* const fast = hfav::fast_scratch(hfav_smem, gscratch, "
-      "use_smem, fast_floats);")
+      "use_smem, fast_floats" + (", bid);" if batched else ");"))
     for m, key in enumerate(lay.fast):
         if key[0] == "shift":
             w(f"  int* const {fptr[key]} = reinterpret_cast<int*>(fast + "
@@ -1234,7 +1262,7 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
                   f"hfav_fn{lay.acc_fold[a.name]}(a, b); }}")
             folds.append((oi, nparts, tiles, wd, c_float(a.init), fn))
         w("  if (fold_groups) {")
-        w("    const int g = (int)(blockIdx.x % fold_groups);")
+        w(f"    const int g = (int)({bid} % fold_groups);")
         w(f"    if (hfav::last_block(tickets + 1 + g, {FOLD_GROUP})) {{")
         for oi, nparts, tiles, wd, init, fn in folds:
             w(f"      float* const res{oi} = gscratch + ptmp{oi};")
@@ -1258,5 +1286,6 @@ def emit_source(call: CallPlan, dtype="float32") -> str:
         w("  }")
     w("}")
     w("")
-    w("HFAV_ENTRY_POINTS(hfav_kernel, HFAV_NP, HFAV_ND)")
+    w("HFAV_ENTRY_POINTS(hfav_kernel, HFAV_NP, "
+      + ("HFAV_NB)" if batched else "HFAV_ND)"))
     return "\n".join(out) + "\n"

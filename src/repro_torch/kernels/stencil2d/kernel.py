@@ -39,6 +39,14 @@ rows and the fold stay float32 and round once, when the folded row is
 written (the reference's 2-byte accumulator row, rounded at every row,
 makes a long sum stagnate; see ``csrc/stencil2d.cuh``).
 
+A batch of examples is one launch (:func:`build_batched`, the
+counterpart of the reference's ``vmap`` over ``pallas_call``, whose
+batching rule gives the Pallas grid a leading batch axis): a second
+source per call and dtype (``emit_source(..., batched=True)``) runs a
+single call's blocks once for each example, each on its own operands,
+global scratch and fold tickets, at the single call's chunking, so each
+example's bits are its single call's.
+
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
 refuses CPU tensors and any dtype but float32, bf16 and float16; a failed
@@ -47,6 +55,8 @@ build or launch raises.  :data:`launches` counts the launches made.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 import pathlib
 import threading
 
@@ -57,7 +67,7 @@ from ...core.interpreters import (STENCIL_CAPABILITIES, InterpreterSpec,
                                   require_linked_fns)
 from ...core.plan import CallPlan, fn_key
 from .. import build
-from .emit import CallLayout, dtype_name, emit_source
+from .emit import H100_SMS, CallLayout, Launch, dtype_name, emit_source
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "stencil2d.cuh"
@@ -67,10 +77,13 @@ launches = 0
 
 _CALLS: dict = {}
 _LOCK = threading.Lock()
-#: The fold's tickets of each (call, device): int32, zero between
-#: launches (the kernel's last blocks reset them).  A call's launches on
-#: one device share them, so they must not overlap (one stream).
+#: The fold's tickets of each (call, device), and apart from them those
+#: of its batched launches: int32, zero between launches (the kernel's
+#: last blocks reset them).  A call's launches of one kind on one device
+#: share them, so they must not overlap (one stream).
 _TICKETS: dict = {}
+#: Most blocks a launch's grid takes (``gridDim.x``).
+MAX_GRID = 2**31 - 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -84,9 +97,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hfav_error_string.restype = ctypes.c_char_p
 
 
-def job(call: CallPlan, dtype=torch.float32) -> build.Job:
-    """The build job of ``call``'s emitted kernel for ``dtype``."""
-    return build.Job(emit_source(call, dtype), (HEADER,), CSRC, _bind)
+def job(call: CallPlan, dtype=torch.float32,
+        batched: bool = False) -> build.Job:
+    """The build job of ``call``'s emitted kernel for ``dtype`` (with
+    ``batched``, of its kernel over a batch of examples)."""
+    return build.Job(emit_source(call, dtype, batched), (HEADER,), CSRC,
+                     _bind)
 
 
 def _call_key(call: CallPlan, dtype):
@@ -98,19 +114,27 @@ def layout(call: CallPlan, dtype=torch.float32) -> CallLayout:
     for ``dtype`` (memoized per plan, kernel bodies and dtype)."""
     key = _call_key(call, dtype)
     if key not in _CALLS:
-        _CALLS[key] = [CallLayout(call, dtype), None]
+        _CALLS[key] = [CallLayout(call, dtype), None, None]
     return _CALLS[key][0]
 
 
-def build_library(call: CallPlan, dtype=torch.float32) -> ctypes.CDLL:
-    """The loaded library of ``call``'s kernel for ``dtype``, built on
-    first use."""
+def build_library(call: CallPlan, dtype=torch.float32,
+                  batched: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``call``'s kernel for ``dtype`` (with
+    ``batched``, of its batched kernel), built on first use.  The batched
+    kernel's build builds the single call's beside it (one ``nvcc`` each,
+    started together): the single kernel's residency fixes a batched
+    launch."""
     layout(call, dtype)
     entry = _CALLS[_call_key(call, dtype)]
-    if entry[1] is None:
+    missing = [b for b in ((False, True) if batched else (False,))
+               if entry[1 + b] is None]
+    if missing:
         with _LOCK:
-            entry[1] = build.build([job(call, dtype)])[0][0]
-    return entry[1]
+            libs = build.build([job(call, dtype, b) for b in missing])[0]
+            for b, lib in zip(missing, libs):
+                entry[1 + b] = lib
+    return entry[1 + batched]
 
 
 def _check_tensor(t, what: str, shape, device, dtype) -> None:
@@ -147,32 +171,60 @@ def occupancy(lib):
     return resident
 
 
-def alloc_outputs(lay: CallLayout, run, device):
-    """The kernel's padded outputs under the reference contract (row
-    outputs ``(*grid, steps_j, Ni)``, accumulators ``(1, w)`` or
-    ``(*grid[:n_kept], w)``) in ``lay``'s dtype, and its global scratch
-    (the blocks' regions where they do not fit shared memory, the
-    accumulators' partial rows; in 4-byte words, float32), on
-    ``device``."""
-    outs = []
+def input_shapes(call: CallPlan, sizes) -> list[tuple[int, ...]]:
+    """The shape of each of ``call``'s inputs at ``sizes`` =
+    ``(*outer_sizes, Nj, Ni)`` (a scalar's is ``(1, 1)``)."""
+    n_out = call.n_outer
+    *outer_sizes, nj, ni = sizes
+    shapes = []
+    for i in call.inputs:
+        if i.scalar:
+            shapes.append((1, 1))
+            continue
+        ilos = i.outer_los or (0,) * i.n_outer
+        ihis = i.outer_his or (0,) * i.n_outer
+        shapes.append(tuple(
+            outer_sizes[d] + ihis[li] - ilos[li]
+            for li, d in enumerate(range(n_out - i.n_outer, n_out)))
+            + (nj + i.j_hi - i.j_lo, ni + i.i_hi - i.i_lo))
+    return shapes
+
+
+def output_shapes(lay: CallLayout, run) -> list[tuple[int, ...]]:
+    """The padded output shapes of one example under the reference
+    contract: row outputs ``(*grid, steps_j, Ni)``, accumulators
+    ``(1, w)`` or ``(*grid[:n_kept], w)``."""
+    shapes = []
     for k, o in enumerate(lay.call.outputs):
         if o.acc is None:
-            shape = (*run.gsz, run.steps_j, run.ni)
+            shapes.append((*run.gsz, run.steps_j, run.ni))
         else:
             a = lay.acc_of(k)
-            shape = (*run.gsz[:a.n_kept], run.ni + a.w_off) if a.n_kept \
-                else (1, run.ni + a.w_off)
-        outs.append(torch.empty(shape, dtype=getattr(torch, lay.dtype),
-                                device=device))
+            shapes.append((*run.gsz[:a.n_kept], run.ni + a.w_off)
+                          if a.n_kept else (1, run.ni + a.w_off))
+    return shapes
+
+
+def alloc_outputs(lay: CallLayout, run, device):
+    """The kernel's padded outputs (:func:`output_shapes`, with a
+    leading batch axis in a batched launch) in ``lay``'s dtype, and its
+    global scratch (the blocks' regions where they do not fit shared
+    memory, the accumulators' partial rows; in 4-byte words, float32;
+    one example's after another in a batched launch), on ``device``."""
+    lead = (run.batch,) if run.batch else ()
+    outs = [torch.empty(lead + shape, dtype=getattr(torch, lay.dtype),
+                        device=device) for shape in output_shapes(lay, run)]
     scratch = torch.empty(max(run.scratch_floats, 1), dtype=torch.float32,
                           device=device)
     return outs, scratch
 
 
-def tickets(lay: CallLayout, device, n: int) -> torch.Tensor:
-    """At least ``n`` fold tickets of ``lay``'s call on ``device``
-    (zeroed when made; the kernel leaves them zero)."""
-    key = (lay, str(device))
+def tickets(lay: CallLayout, device, n: int,
+            batched: bool = False) -> torch.Tensor:
+    """At least ``n`` fold tickets of ``lay``'s call on ``device``, of
+    its batched launches with ``batched`` (zeroed when made; the kernel
+    leaves them zero)."""
+    key = (lay, str(device), batched)
     if key not in _TICKETS or _TICKETS[key].numel() < n:
         _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return _TICKETS[key]
@@ -183,8 +235,33 @@ def launch_tensors(lay: CallLayout, run, args):
     inputs, freshly allocated outputs and scratch, and the tickets."""
     dev = args[0].device
     outs, scratch = alloc_outputs(lay, run, dev)
-    return outs, list(args) + outs + [scratch,
-                                      tickets(lay, dev, run.tickets)]
+    return outs, list(args) + outs + [
+        scratch, tickets(lay, dev, run.tickets, batched=bool(run.batch))]
+
+
+def batch_launch(lay: CallLayout, run: Launch, in_shapes, batch: int,
+                 sms: int = H100_SMS) -> Launch:
+    """The launch of the batched kernel over ``batch`` examples of the
+    single call ``run``: its blocks once for each example, its size
+    parameters followed by the bytes each pointer (inputs of
+    ``in_shapes``, outputs, scratch, tickets) advances from one example to
+    the next.  Each example's scratch is the single call's, rounded up to
+    16 bytes, and its tickets are its own.  Raises ``ValueError`` past
+    :data:`MAX_GRID` blocks."""
+    nblocks = run.nblocks * batch
+    if nblocks > MAX_GRID:
+        raise ValueError(f"a batch of {batch} examples of {run.nblocks} "
+                         f"blocks each is past the grid's {MAX_GRID} "
+                         f"blocks")
+    slab = -(-max(run.scratch_floats, 1) // 4) * 4
+    strides = [math.prod(s) * lay.itemsize
+               for s in list(in_shapes) + output_shapes(lay, run)]
+    strides += [4 * slab, 4 * run.tickets]
+    return dataclasses.replace(
+        run, ints=run.ints + tuple(strides), nblocks=nblocks,
+        scratch_floats=slab * batch, tickets=run.tickets * batch,
+        batch=batch,
+        waves=-(-nblocks // (sms * run.resident)) if run.resident else 0)
 
 
 def launch(lib, run, tensors, *, threads: int, stream) -> None:
@@ -230,45 +307,59 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     built, and its launch fixed, at the first call.  ``dtype`` is
     float32, bf16 or float16; any other raises
     :class:`PlanUnsupported`."""
+    return _build(call, sizes, dtype, chunk, plane_chunk, batched=False)
+
+
+def build_batched(call: CallPlan, sizes: tuple[int, ...], dtype, *,
+                  device=None, chunk=None, plane_chunk=None):
+    """:func:`build_call` over a batch: ``fn`` maps the call's inputs,
+    each with one leading batch axis of the same width ``B >= 1``, to
+    its padded outputs with that leading axis, in **one** launch of the
+    batched kernel for the whole batch.  The launch is the single
+    call's at ``sizes`` (its chunk and plane-chunk lengths, chosen from
+    the single kernel's residency or forced as in :func:`build_call`),
+    so each example's bits equal its single call's.  Both kernels are
+    built at the first call; a failed build or launch raises."""
+    return _build(call, sizes, dtype, chunk, plane_chunk, batched=True)
+
+
+def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool):
     dtype_name(dtype)  # raises PlanUnsupported for another dtype
-    n_out = call.n_outer
-    if len(sizes) != n_out + 2:
-        raise ValueError(
-            f"call {call.name} has n_outer={n_out} but got sizes {sizes}")
+    if len(sizes) != call.n_outer + 2:
+        raise ValueError(f"call {call.name} has n_outer={call.n_outer} but "
+                         f"got sizes {sizes}")
     require_linked_fns(call)
     require_hazard_free(call)
     lay = layout(call, dtype)
-    *outer_sizes, nj, ni = sizes
-    steps_j = max(0, nj + call.x_hi_off - call.x_lo)
-    in_shapes = []
-    for i in call.inputs:
-        if i.scalar:
-            in_shapes.append((1, 1))
-            continue
-        ilos = i.outer_los or (0,) * i.n_outer
-        ihis = i.outer_his or (0,) * i.n_outer
-        in_shapes.append(tuple(
-            outer_sizes[d] + ihis[li] - ilos[li]
-            for li, d in enumerate(range(n_out - i.n_outer, n_out)))
-            + (nj + i.j_hi - i.j_lo, ni + i.i_hi - i.i_lo))
-
-    built = []  # (library, launch), fixed at the first call
+    in_shapes = input_shapes(call, sizes)
+    steps_j = max(0, sizes[-2] + call.x_hi_off - call.x_lo)
+    built = []  # (library, single launch, SMs), fixed at the first call
 
     def fn(*args):
         if len(args) != len(call.inputs):
             raise ValueError(f"call {call.name} takes {len(call.inputs)} "
                              f"inputs, got {len(args)}")
         dev = args[0].device if isinstance(args[0], torch.Tensor) else None
+        lead = ()
+        if batched:
+            lead = tuple(args[0].shape[:1]) if dev is not None else (0,)
         for i, t, shape in zip(call.inputs, args, in_shapes):
-            _check_tensor(t, f"input {i.name!r}", shape, dev, dtype)
+            _check_tensor(t, f"input {i.name!r}", lead + shape, dev, dtype)
+        if lead and lead[0] < 1:
+            raise ValueError(f"call {call.name}: a batch needs a leading "
+                             f"batch axis of width >= 1")
         with torch.cuda.device(dev):
             if not built:
-                lib = build_library(call, dtype)
+                lib = build_library(call, dtype, batched)
                 sms = torch.cuda.get_device_properties(
                     dev).multi_processor_count
+                # a batched launch is the single call's, once an example
+                resident = occupancy(build_library(call, dtype))
                 built.append((lib, lay.concretize(
-                    tuple(sizes), occupancy(lib), chunk, sms, plane_chunk)))
-            lib, run = built[0]
+                    tuple(sizes), resident, chunk, sms, plane_chunk), sms))
+            lib, run, sms = built[0]
+            if batched:
+                run = batch_launch(lay, run, in_shapes, lead[0], sms)
             return run_kernel(lib, lay, run, args, threads=run.threads,
                               stream=torch.cuda.current_stream(dev).cuda_stream)
 
@@ -278,6 +369,7 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
 register_interpreter(InterpreterSpec(
     name="cuda",
     build_call=build_call,
+    build_batched=build_batched,
     # the reference Pallas kernel's set: unit-stride reads only, no
     # LayoutApply constructs (kernel.py:511-512 of the JAX package)
     capabilities=STENCIL_CAPABILITIES,

@@ -16,9 +16,12 @@ Three layers:
   re-seated to the request's true shape (:func:`unpad_outputs`).  Each
   program compiles exactly once
   (:func:`repro_torch.core.engine.compile_batched` — the single-example
-  executor mapped over a leading batch axis); its executor fixes one
-  launch of the built kernel per problem size and keeps it, so the
-  buckets bound the launches a stream of mixed-size requests fixes.
+  executor over a leading batch axis: on the card one launch of the CUDA
+  kernel's batched source per grid ``CallPlan`` for a whole micro-batch,
+  as the reference's ``vmap`` gives ``pallas_call`` a batch grid axis);
+  its executor fixes one launch shape of the built kernel per problem
+  size and keeps it, so the buckets bound the launch shapes a stream of
+  mixed-size requests fixes.
   Zero-padding is bit-exact for stencil programs (goal
   stores seat only the valid region ``[lo, n+hi)`` per dim and the
   padded lanes never feed it); it is *not* guaranteed bit-exact for
@@ -28,11 +31,13 @@ Three layers:
   a request and returns a :class:`ServeTicket`; a background batcher
   thread collects up to ``max_batch`` same-bucket requests or waits at
   most ``max_wait_ms``, pads each to the bucket, stacks, executes one
-  batched call on the card (from the batcher's thread, on its current
-  stream), waits for the device through an event, and scatters
+  batched call on the card (one kernel launch per grid ``CallPlan``,
+  from the batcher's thread, on its current stream), waits for the
+  device through an event, and scatters
   per-request outputs back through the tickets — so a ticket's latency
   includes the device's time, not just the enqueue.  Nothing is traced,
-  so batches are not padded to a family of widths.
+  so batches are not padded to a family of widths: the batched kernel
+  takes any batch width at the bucket's launch shape.
 * **Warm start** — with a ``plan_cache_dir`` (default: the
   ``REPRO_PLAN_CACHE_DIR`` environment variable, same as
   ``compile_program``), program compilations go through the on-disk plan
@@ -66,9 +71,10 @@ from ..core.rules import Program
 
 #: Backends PlanServe accepts: those whose batched path is pinned
 #: bit-identical to per-example calls (the tests hold batched against
-#: unbatched per backend; ``chip_smoke.py`` holds ``"cuda"`` on the
-#: card).  A newly registered interpreter must be added here once its
-#: conformance run passes.
+#: unbatched per backend, ``"cuda"``'s batched kernel through its host
+#: emulation; ``chip_smoke.py`` holds ``"cuda"`` on the card, one
+#: launch per grid ``CallPlan`` a micro-batch).  A newly registered
+#: interpreter must be added here once its conformance run passes.
 VMAP_SAFE = frozenset({"torch", "cuda", "interp_torch"})
 
 #: Default per-dimension size quantum for shape buckets.

@@ -309,6 +309,49 @@ def test_failing_batch_fails_its_tickets(monkeypatch):
     assert torch.equal(out["lap"], _ref("laplace5", {"cell": u})["lap"])
 
 
+@pytest.mark.parametrize("name,shape,n", [("laplace5", (9, 17), 4),
+                                          ("normalization", (9, 14), 3)])
+def test_micro_batch_is_one_emulated_launch_per_grid_call(name, shape, n,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """On an interpreter with a batched ``build_call`` (K1, here its
+    host emulation), a micro-batch of ``n`` requests is one launch per
+    grid ``CallPlan`` of the program (normalization has two), and each
+    answer is its request's single call's bits."""
+    import shutil
+
+    import repro_torch.serve.plans as plans
+    from repro_torch.kernels.stencil2d import kernel as k1
+    from test_torch_batched import emulated_interpreter, grid_calls
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
+    rng = _rng()
+    arrays = [{a: rng.standard_normal(shape).astype(np.float32)
+               for a in request_sizes_names(name)} for _ in range(n)]
+    with emulated_interpreter(tmp_path) as emulated:
+        monkeypatch.setattr(plans, "VMAP_SAFE", VMAP_SAFE | {emulated})
+        with _serve([name], backend=emulated, max_batch=n,
+                    max_wait_ms=10_000.0) as srv:
+            srv.prefill(name, request_sizes(_prog(name), arrays[0]),
+                        batch=n)
+            before = k1.launches
+            tickets = [srv.submit(name, a) for a in arrays]
+            outs = [t.result(120) for t in tickets]
+            launches = k1.launches - before
+        assert srv.metrics.snapshot()["batches"] == 1  # (prefill: none)
+        assert launches == grid_calls(name)
+        for a, out, t in zip(arrays, outs, tickets):
+            assert t.stats["batch_size"] == n
+            want = compile_program(_prog(name), emulated,
+                                   device="cpu").fn(**a)
+            for k in want:
+                assert torch.equal(out[k], want[k]), k
+
+
+def request_sizes_names(name):
+    return sorted({ax.term.ref.name for ax in _prog(name).axioms})
+
+
 # ---------------------------------------------------------------------------
 # Against the reference's PlanServe
 # ---------------------------------------------------------------------------
