@@ -655,9 +655,9 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
     exact_in = arrs
     if half:  # the kernel's own dtype: no cast inside the timed call
         arrs = {k: v.to(dtype) for k, v in arrs.items()}
-    k1.launches = 0
+    base = k1.launches
     got, records = bench.capture(lambda: gen.fn(**arrs))
-    launches = k1.launches
+    launches = k1.launches - base
     if launches == 0:
         raise AssertionError(f"main path {n}: no kernel launch")
     # the same launch again gives the same bits: the device fold of the
@@ -937,10 +937,10 @@ def batched_phase(plans: dict, dev, flush, rate: float, smi: str) -> list:
         outs = {}
         for backend in ("cuda", "auto"):
             bgen = compile_batched(prog, backend)
-            k1.launches = 0
+            base = k1.launches
             out = bgen.fn(batch)
             torch.cuda.synchronize()
-            launches = k1.launches
+            launches = k1.launches - base
             if launches != calls:
                 raise AssertionError(
                     f"batched/{backend}/{n}: {launches} K1 launches for a "
@@ -1014,12 +1014,12 @@ def half_entry_points(plans: dict, dev, dtype) -> None:
         if route != "cuda":
             raise AssertionError(f"auto/{half}/{n}: took {route!r}, not "
                                  f"'cuda'")
-        k1.launches = 0
+        base = k1.launches
         got = gen.fn(**arrs)
         torch.cuda.synchronize()
-        if k1.launches == 0:
+        launches = k1.launches - base
+        if launches == 0:
             raise AssertionError(f"auto/{half}/{n}: no K1 launch")
-        launches = k1.launches
         want = compile_program(ALL_PROGRAMS[n](), backend="cuda",
                                dtype=dtype).fn(**arrs)
         for k in want:
@@ -1036,10 +1036,10 @@ def half_entry_points(plans: dict, dev, dtype) -> None:
     batch = {k: torch.stack([e[k] for e in examples]) for k in examples[0]}
     bgen = compile_batched(ALL_PROGRAMS[n](), "cuda", dtype=dtype)
     single = compile_program(ALL_PROGRAMS[n](), backend="cuda", dtype=dtype)
-    k1.launches = 0
+    base = k1.launches
     out = bgen.fn(batch)
     torch.cuda.synchronize()
-    launches = k1.launches
+    launches = k1.launches - base
     if launches != grid_calls(plans[n]):
         raise AssertionError(f"batched/{half}/{n}: {launches} K1 launches "
                              f"for a batch of {BATCH}, not one per grid "
@@ -1098,18 +1098,18 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
                 raise AssertionError(f"auto/{n}: took {route!r}, not 'cuda'")
             routes.append(route)
         arrs = bench.make_inputs(n, plans[n], CONFORMANCE_DIMS, 7, dev)
-        k1.launches = 0
+        base = k1.launches
         gen.fn(**arrs)
         torch.cuda.synchronize()
-        if k1.launches == 0:
+        if k1.launches == base:
             raise AssertionError(f"auto/{n}: no K1 launch")
         smem = "+".join(str(v) for v in smem_report(plans[n],
                                                     sizes).values())
         nests = len(engine._build_plan(b())[1].schedule.nests)
         print(f"auto {n:22s} nests={nests} route={routes[0]}  with "
               f"dim_sizes {sizes}: route={routes[1]}  K1 launches="
-              f"{k1.launches}  K1 region a block={smem} B (shared memory "
-              f"holds {SMEM_LIMIT})", flush=True)
+              f"{k1.launches - base}  K1 region a block={smem} B (shared "
+              f"memory holds {SMEM_LIMIT})", flush=True)
 
     # 1b. bf16 and float16 through "auto" and compile_batched
     for dtype in HALF_NAMES:
@@ -1247,7 +1247,7 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
     progs = {n: ALL_PROGRAMS[n]() for n in SERVE_PROGRAMS}
     reqs = serve_requests(dev)
     clear_compile_cache()
-    k1.launches = 0
+    base = k1.launches
     micro = []  # (program, requests, K1 launches) of each micro-batch
     with PlanServe(progs, max_batch=SERVE_MAX_BATCH) as srv:
         if srv.backend != "cuda":
@@ -1255,16 +1255,16 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
                                  f"is {srv.backend!r}")
         execute = srv._execute
 
-        def counted(key, batch):  # the batcher's thread, one at a time
+        def counted(key, batch, bid):  # the batcher's thread, one at a time
             before = k1.launches
-            execute(key, batch)
+            execute(key, batch, bid)
             micro.append((key[0], len(batch), k1.launches - before))
 
         srv._execute = counted
         tickets = [(n, a, srv.submit(n, a)) for n, a in reqs]
         answers = [(n, a, t.result(600)) for n, a, t in tickets]
         snap = srv.metrics.snapshot()
-    launches = k1.launches
+    launches = k1.launches - base
     if launches == 0:
         raise AssertionError("planserve: no K1 launch")
     for n, size, got in micro:

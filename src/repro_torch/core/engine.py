@@ -60,6 +60,7 @@ from typing import Optional, Union
 
 import torch
 
+from .. import obs
 from .codegen_torch import Generated, generate
 from .dataflow import build_dataflow
 from .fusion import fuse_inest_dag
@@ -505,83 +506,86 @@ def compile_program(
     kernel is not), VecScan's hints are realized on the plan before it
     builds.  The on-disk plan cache always stores the untransformed
     plan."""
-    if backend == "jax":
-        raise ValueError(
-            "backend 'jax' is the JAX package's fused-source emitter; the "
-            "port's is backend 'torch'")
-    if backend in ("auto", "torch"):
-        spec = None
-    else:
-        try:
-            spec = get_interpreter(backend)
-        except ValueError:
+    with obs.span("engine.compile"):
+        if backend == "jax":
             raise ValueError(
-                f"unknown backend {backend!r}; expected 'auto', 'torch' or "
-                f"a registered interpreter: {registered_interpreters()}"
-            ) from None
-    if backend == "torch" and options:
-        raise TypeError(f"backend 'torch' takes no build option(s) "
-                        f"{sorted(options)}")
-    dev = resolve_device(device)
-    if backend == "auto":
-        unknown = set(options) - get_interpreter("cuda").flags
-        if unknown:
-            raise TypeError(f"backend 'auto' takes no build option(s) "
-                            f"{sorted(unknown)}")
-    check = resolve_check_mode(check_plans)
-    apply_mode = resolve_apply_mode(apply_layout)
-    if plan_cache_dir is None:
-        plan_cache_dir = os.environ.get(PLAN_CACHE_DIR_ENV) or None
-    sizes_key = tuple(sorted(dim_sizes.items())) if dim_sizes else None
-    layout_aware = backend == "auto" or (spec is not None
-                                         and spec.layout_aware)
-    key = (program_signature(program), backend, str(dtype), str(dev),
-           tuple(sorted(options.items())), sizes_key,
-           apply_mode if layout_aware else "off")
-    if use_cache:
-        hit = _CACHE.get(key)
-        if hit is not None:
-            if plan_cache_dir is not None and isinstance(hit,
-                                                         PallasGenerated):
-                # the program compiled before this call named a cache
-                # dir: back-fill the L2 so the next process runs warm
-                _store_plan_to_disk(program, hit.base_plan or hit.kernel_plan,
-                                    plan_cache_dir, only_if_missing=True)
-            return _attach_vec_report(hit, vec_report, dim_sizes, dtype)
-    flags = dict(dtype=dtype, device=dev, options=options,
-                 use_cache=use_cache, check=check, dim_sizes=dim_sizes,
-                 apply_mode=apply_mode)
-    if plan_cache_dir is not None and backend != "torch":
-        # disk-restored artifacts carry no StoragePlan, so they live
-        # under a marked key: a later compile *without* plan_cache_dir
-        # must rebuild the full artifact, not inherit the degraded one
-        dkey = key + ("disk",)
+                "backend 'jax' is the JAX package's fused-source emitter; the "
+                "port's is backend 'torch'")
+        if backend in ("auto", "torch"):
+            spec = None
+        else:
+            try:
+                spec = get_interpreter(backend)
+            except ValueError:
+                raise ValueError(
+                    f"unknown backend {backend!r}; expected 'auto', 'torch' "
+                    f"or a registered interpreter: "
+                    f"{registered_interpreters()}"
+                ) from None
+        if backend == "torch" and options:
+            raise TypeError(f"backend 'torch' takes no build option(s) "
+                            f"{sorted(options)}")
+        dev = resolve_device(device)
+        if backend == "auto":
+            unknown = set(options) - get_interpreter("cuda").flags
+            if unknown:
+                raise TypeError(f"backend 'auto' takes no build option(s) "
+                                f"{sorted(unknown)}")
+        check = resolve_check_mode(check_plans)
+        apply_mode = resolve_apply_mode(apply_layout)
+        if plan_cache_dir is None:
+            plan_cache_dir = os.environ.get(PLAN_CACHE_DIR_ENV) or None
+        sizes_key = tuple(sorted(dim_sizes.items())) if dim_sizes else None
+        layout_aware = backend == "auto" or (spec is not None
+                                             and spec.layout_aware)
+        key = (program_signature(program), backend, str(dtype), str(dev),
+               tuple(sorted(options.items())), sizes_key,
+               apply_mode if layout_aware else "off")
         if use_cache:
-            hit = _CACHE.get(dkey)
+            hit = _CACHE.get(key)
             if hit is not None:
-                return _attach_vec_report(hit, vec_report, dim_sizes,
-                                          dtype)
-        gen = _disk_compile(program, backend, plan_cache_dir, **flags)
-        if gen is not None:
+                if plan_cache_dir is not None and isinstance(hit,
+                                                             PallasGenerated):
+                    # the program compiled before this call named a cache
+                    # dir: back-fill the L2 so the next process runs warm
+                    _store_plan_to_disk(program,
+                                        hit.base_plan or hit.kernel_plan,
+                                        plan_cache_dir, only_if_missing=True)
+                return _attach_vec_report(hit, vec_report, dim_sizes, dtype)
+        flags = dict(dtype=dtype, device=dev, options=options,
+                     use_cache=use_cache, check=check, dim_sizes=dim_sizes,
+                     apply_mode=apply_mode)
+        if plan_cache_dir is not None and backend != "torch":
+            # disk-restored artifacts carry no StoragePlan, so they live
+            # under a marked key: a later compile *without* plan_cache_dir
+            # must rebuild the full artifact, not inherit the degraded one
+            dkey = key + ("disk",)
             if use_cache:
-                _CACHE[dkey] = gen
-            return _attach_vec_report(gen, vec_report, dim_sizes, dtype)
-    idag, plan = _build_plan(program)
-    if backend == "torch":
-        gen = generate(plan, idag, dtype=dtype, device=dev)
-    elif backend == "auto":
-        gen = _pallas_auto_probe(plan, idag, **flags)
-        if gen is None:
+                hit = _CACHE.get(dkey)
+                if hit is not None:
+                    return _attach_vec_report(hit, vec_report, dim_sizes,
+                                              dtype)
+            gen = _disk_compile(program, backend, plan_cache_dir, **flags)
+            if gen is not None:
+                if use_cache:
+                    _CACHE[dkey] = gen
+                return _attach_vec_report(gen, vec_report, dim_sizes, dtype)
+        idag, plan = _build_plan(program)
+        if backend == "torch":
             gen = generate(plan, idag, dtype=dtype, device=dev)
-    else:
-        gen = _emit_plan(plan_pallas(plan, idag), plan, interpreter=backend,
-                         **flags)
-    if plan_cache_dir is not None and isinstance(gen, PallasGenerated):
-        _store_plan_to_disk(program, gen.base_plan or gen.kernel_plan,
-                            plan_cache_dir)
-    if use_cache:
-        _CACHE[key] = gen
-    return _attach_vec_report(gen, vec_report, dim_sizes, dtype)
+        elif backend == "auto":
+            gen = _pallas_auto_probe(plan, idag, **flags)
+            if gen is None:
+                gen = generate(plan, idag, dtype=dtype, device=dev)
+        else:
+            gen = _emit_plan(plan_pallas(plan, idag), plan,
+                             interpreter=backend, **flags)
+        if plan_cache_dir is not None and isinstance(gen, PallasGenerated):
+            _store_plan_to_disk(program, gen.base_plan or gen.kernel_plan,
+                                plan_cache_dir)
+        if use_cache:
+            _CACHE[key] = gen
+        return _attach_vec_report(gen, vec_report, dim_sizes, dtype)
 
 
 class BatchedGenerated:
@@ -632,7 +636,8 @@ def compile_batched(
     plain versions) the batch is a loop over the examples, each through
     the single-example ``fn``, and a ``torch.stack`` of their outputs.
     There is no ``jit`` flag: nothing is traced."""
-    gen = compile_program(program, backend, **kwargs)
+    with obs.span("engine.compile"):
+        gen = compile_program(program, backend, **kwargs)
     batch_fn = getattr(gen, "batch_fn", None)
 
     def fn(arrays: dict) -> dict:

@@ -44,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .plan import (PLAN_FEATURES, CallPlan, KernelPlan, OutputPlan,
                    PallasUnsupported)
 from .runtime import lane_reduce
@@ -471,6 +472,10 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
     built: dict[tuple, object] = {}
 
     def fn(**arrays):
+        with obs.span("plan.run"):
+            return run(arrays)
+
+    def run(arrays):
         sizes: dict[str, int] = {}
         for ax in kplan.axioms:
             arr = arrays[ax.array]
@@ -482,38 +487,46 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
         nj = sizes[dim_sym[jdim]]
         ni = sizes[dim_sym[inner]]
         n_outs = tuple(sizes[dim_sym[d]] for d in outer_dims)
-        env: dict[str, torch.Tensor] = {
-            name: as_tensor(arrays[name], dtype, device)
-            for name in input_names
-        }
+        with obs.span("plan.inputs"):
+            env: dict[str, torch.Tensor] = {
+                name: as_tensor(arrays[name], dtype, device)
+                for name in input_names
+            }
+            for p in kplan.pre_passes:
+                env[p.array] = _lane_permute(env[p.array], p)
         batch = (env[input_names[0]].shape[0],) if batched else ()
-        for p in kplan.pre_passes:
-            env[p.array] = _lane_permute(env[p.array], p)
         for ci, cp in enumerate(kplan.calls):
             for hs in cp.host_pre:
-                _run_host(cp, hs, env)
+                with obs.span("plan.host"):
+                    _run_host(cp, hs, env)
             if cp.has_grid:
                 key = (ci, n_outs, nj, ni)
                 if key not in built:
                     built[key] = build(cp, (*n_outs, nj, ni), dtype,
                                        device=device, **options)[0]
                 pcall = built[key]
-                args = []
-                for ispec in cp.inputs:
-                    v = as_tensor(env[ispec.name], dtype, device)
-                    if ispec.scalar:
-                        v = v.reshape(batch + (1, 1))
-                    args.append(v)
+                with obs.span("plan.inputs"):
+                    args = []
+                    for ispec in cp.inputs:
+                        v = as_tensor(env[ispec.name], dtype, device)
+                        if ispec.scalar:
+                            v = v.reshape(batch + (1, 1))
+                        args.append(v)
                 padded = pcall(*args)
                 if not isinstance(padded, (list, tuple)):
                     padded = [padded]
-                for out, pout in zip(cp.outputs, padded):
-                    env[out.name] = assemble(cp, out, pout, nj, ni, n_outs,
-                                             batched=batched)
+                with obs.span("plan.reseat"):
+                    for out, pout in zip(cp.outputs, padded):
+                        env[out.name] = assemble(cp, out, pout, nj, ni,
+                                                 n_outs, batched=batched)
             for hs in cp.host_post:
-                _run_host(cp, hs, env)
-        for p in kplan.post_passes:
-            env[p.array] = _lane_permute(env[p.array], p, inverse=True)
+                with obs.span("plan.host"):
+                    _run_host(cp, hs, env)
+        if kplan.post_passes:
+            with obs.span("plan.inputs"):
+                for p in kplan.post_passes:
+                    env[p.array] = _lane_permute(env[p.array], p,
+                                                 inverse=True)
         return {store: env[var] for store, var in kplan.goal_outputs}
 
     return fn

@@ -6,7 +6,8 @@ import: one ``nvcc`` per source for ``sm_90a``, all the sources of one
 :func:`build` call started together, each library cached by the sha256
 of (source, the headers it includes, ``nvcc --version``, the flags) in
 ``build/repro_torch/`` at the repository root.  A failed build raises
-with the compiler's log.
+with the compiler's log.  The counters ``kernel.nvcc`` and ``kernel.load``
+(:mod:`repro_torch.obs`) count the libraries compiled and loaded.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable, Sequence
+
+from .. import obs
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch"
@@ -152,6 +155,7 @@ def _finish_build(job: Job, key: str, proc) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(BUILD_DIR / f"{key}.so"))
         job.bind(lib)
         _LIBS[key] = lib
+        obs.count("kernel.load")
     return lib
 
 
@@ -169,4 +173,6 @@ def build(jobs: Sequence[Job]) -> tuple[list[ctypes.CDLL], int]:
         for job, key in zip(jobs, keys):
             if key not in libs:
                 libs[key] = _finish_build(job, key, procs[key])
-    return [libs[k] for k in keys], sum(p is not None for p in procs.values())
+    compiled = sum(p is not None for p in procs.values())
+    obs.count("kernel.nvcc", compiled)
+    return [libs[k] for k in keys], compiled

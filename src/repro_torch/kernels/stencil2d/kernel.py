@@ -50,7 +50,8 @@ example's bits are its single call's.
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
 refuses CPU tensors and any dtype but float32, bf16 and float16; a failed
-build or launch raises.  :data:`launches` counts the launches made.
+build or launch raises.  The counter ``k1.launch``
+(:mod:`repro_torch.obs`) counts the launches made; ``launches`` reads it.
 """
 from __future__ import annotations
 
@@ -65,15 +66,13 @@ import torch
 from ...core.interpreters import (STENCIL_CAPABILITIES, InterpreterSpec,
                                   register_interpreter, require_hazard_free,
                                   require_linked_fns)
+from ... import obs
 from ...core.plan import CallPlan, fn_key
 from .. import build
 from .emit import H100_SMS, CallLayout, Launch, dtype_name, emit_source
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 HEADER = CSRC / "stencil2d.cuh"
-
-#: Kernel launches made by :func:`run_kernel`.
-launches = 0
 
 _CALLS: dict = {}
 _LOCK = threading.Lock()
@@ -281,11 +280,10 @@ def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
     the kernel of ``lib`` on ``stream`` (which folds the accumulators);
     returns the padded outputs under the reference contract.  A launch
     of no blocks leaves each accumulator at its identity."""
-    global launches
     outs, tensors = launch_tensors(lay, run, args)
     if run.nblocks:
         launch(lib, run, tensors, threads=threads, stream=stream)
-        launches += 1
+        obs.count("k1.launch")
     else:
         for k in lay.acc_outs:
             outs[k].fill_(lay.acc_of(k).init)
@@ -348,15 +346,18 @@ def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool):
         if lead and lead[0] < 1:
             raise ValueError(f"call {call.name}: a batch needs a leading "
                              f"batch axis of width >= 1")
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), obs.span("k1.launch"):
             if not built:
-                lib = build_library(call, dtype, batched)
-                sms = torch.cuda.get_device_properties(
-                    dev).multi_processor_count
-                # a batched launch is the single call's, once an example
-                resident = occupancy(build_library(call, dtype))
-                built.append((lib, lay.concretize(
-                    tuple(sizes), resident, chunk, sms, plane_chunk), sms))
+                with obs.span("kernel.build"):
+                    lib = build_library(call, dtype, batched)
+                    sms = torch.cuda.get_device_properties(
+                        dev).multi_processor_count
+                    # a batched launch is the single call's, once an
+                    # example
+                    resident = occupancy(build_library(call, dtype))
+                    built.append((lib, lay.concretize(
+                        tuple(sizes), resident, chunk, sms, plane_chunk),
+                        sms))
             lib, run, sms = built[0]
             if batched:
                 run = batch_launch(lay, run, in_shapes, lead[0], sms)
@@ -364,6 +365,12 @@ def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool):
                               stream=torch.cuda.current_stream(dev).cuda_stream)
 
     return fn, steps_j
+
+
+def __getattr__(name: str):
+    if name == "launches":  # the ``k1.launch`` counter, read as before
+        return obs.counter("k1.launch")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 register_interpreter(InterpreterSpec(

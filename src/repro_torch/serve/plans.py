@@ -49,10 +49,16 @@ Three layers:
 
 A failing batch fails its tickets; nothing retries on another backend.
 Per-request metrics (queue wait, batch size, compile-vs-cache-hit,
-p50/p99 latency, requests/s) accumulate in :class:`ServeMetrics`.
+p50/p99 latency, requests/s) accumulate in :class:`ServeMetrics`.  With
+spans on (:mod:`repro_torch.obs`) the caller's ``serve.submit`` and the
+batcher's ``serve.wait``, ``serve.collect`` and ``serve.batch`` (with
+``serve.pad``, ``serve.stack``, the plan's run, ``serve.unpad``,
+``serve.finish`` and ``serve.resolve`` inside) are recorded, joined by
+the ``request_id`` and ``batch_id`` in each ticket's ``stats``.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -64,6 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.engine import (PLAN_CACHE_DIR_ENV, BatchedGenerated,
                            auto_interpreter, compile_batched)
 from ..core.interpreters import as_tensor, resolve_device
@@ -213,7 +220,8 @@ class ServeTicket:
         self._outputs: Optional[dict] = None
         self._error: Optional[BaseException] = None
         #: Per-request metrics (filled when done): ``latency_ms``,
-        #: ``queue_wait_ms``, ``batch_size``, ``bucket``, ``compiled``.
+        #: ``queue_wait_ms``, ``batch_size``, ``bucket``, and the ids its
+        #: spans carry, ``request_id`` and ``batch_id``.
         self.stats: dict = {}
 
     def done(self) -> bool:
@@ -250,22 +258,30 @@ def _dist(xs: list) -> dict:
             "mean": float(v.mean()), "max": float(v.max())}
 
 
+#: The most recent requests whose latency and queue wait
+#: :class:`ServeMetrics` keeps for its distributions.
+SAMPLE_WINDOW = 4096
+
+
 class ServeMetrics:
     """Thread-safe accumulator for PlanServe's per-request metrics.
 
-    ``snapshot()`` returns request/batch counts, requests/s over the
-    engine's lifetime, latency and queue-wait distributions (ms),
-    batch-size stats, compile accounting (count, disk hits, total ms)
-    and the per-bucket hit table."""
+    ``snapshot()`` returns request/batch counts, requests/s and batch
+    size stats over the engine's lifetime, latency and queue-wait
+    distributions (ms) over the most recent :data:`SAMPLE_WINDOW`
+    requests, compile accounting (count, disk hits, total ms) and the
+    per-bucket hit table.  Its memory stays bounded over the engine's
+    lifetime."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
         self.requests = 0
         self.batches = 0
-        self.latency_ms: list = []
-        self.queue_wait_ms: list = []
-        self.batch_sizes: list = []
+        self.batched_requests = 0
+        self.batch_max = 0
+        self.latency_ms: deque = deque(maxlen=SAMPLE_WINDOW)
+        self.queue_wait_ms: deque = deque(maxlen=SAMPLE_WINDOW)
         self.compiles = 0
         self.compile_disk_hits = 0
         self.compile_ms = 0.0
@@ -274,7 +290,8 @@ class ServeMetrics:
     def record_batch(self, bucket_key, n: int) -> None:
         with self._lock:
             self.batches += 1
-            self.batch_sizes.append(n)
+            self.batched_requests += n
+            self.batch_max = max(self.batch_max, n)
             b = self.buckets.setdefault(
                 str(bucket_key), {"batches": 0, "requests": 0})
             b["batches"] += 1
@@ -294,26 +311,30 @@ class ServeMetrics:
                 self.compile_disk_hits += 1
 
     def snapshot(self) -> dict:
-        """One immutable metrics view (safe to serialize)."""
+        """One immutable metrics view (safe to serialize); the
+        percentiles are taken after the lock is let go."""
         with self._lock:
             wall = time.perf_counter() - self._t0
-            return {
-                "requests": self.requests,
-                "batches": self.batches,
-                "wall_s": wall,
-                "requests_per_s": self.requests / wall if wall > 0 else 0.0,
-                "latency_ms": _dist(self.latency_ms),
-                "queue_wait_ms": _dist(self.queue_wait_ms),
-                "batch_size": {
-                    "mean": (float(np.mean(self.batch_sizes))
-                             if self.batch_sizes else 0.0),
-                    "max": max(self.batch_sizes, default=0),
-                },
-                "compiles": {"count": self.compiles,
-                             "disk_hits": self.compile_disk_hits,
-                             "total_ms": self.compile_ms},
-                "buckets": {k: dict(v) for k, v in self.buckets.items()},
-            }
+            requests, batches = self.requests, self.batches
+            batched, size_max = self.batched_requests, self.batch_max
+            latency = list(self.latency_ms)
+            queue_wait = list(self.queue_wait_ms)
+            compiles = {"count": self.compiles,
+                        "disk_hits": self.compile_disk_hits,
+                        "total_ms": self.compile_ms}
+            buckets = {k: dict(v) for k, v in self.buckets.items()}
+        return {
+            "requests": requests,
+            "batches": batches,
+            "wall_s": wall,
+            "requests_per_s": requests / wall if wall > 0 else 0.0,
+            "latency_ms": _dist(latency),
+            "queue_wait_ms": _dist(queue_wait),
+            "batch_size": {"mean": batched / batches if batches else 0.0,
+                           "max": size_max},
+            "compiles": compiles,
+            "buckets": buckets,
+        }
 
 
 @dataclass
@@ -323,6 +344,7 @@ class _Pending:
     arrays: dict
     sizes: dict
     t_submit: float
+    request_id: int
 
 
 class PlanServe:
@@ -384,6 +406,8 @@ class PlanServe:
         self.compile_kwargs = dict(compile_kwargs or {})
         self.metrics = ServeMetrics()
         self._compiled: dict = {}   # name -> BatchedGenerated
+        self._request_ids = itertools.count(1)
+        self._batch_ids = itertools.count(1)
         self._queues: dict = {}     # (name, bucket) -> deque[_Pending]
         self._cond = threading.Condition()
         self._closed = False
@@ -490,17 +514,19 @@ class PlanServe:
         inference and
         bucketing happen here (caller thread) so a malformed request
         raises synchronously, not inside the batcher."""
-        prog = self._program(name)
-        sizes = request_sizes(prog, arrays)
-        bucket = bucket_sizes(prog, sizes, self._quantum[name])
-        ticket = ServeTicket()
-        pend = _Pending(ticket, arrays, sizes, time.perf_counter())
-        with self._cond:
-            if self._closed:
-                raise RuntimeError("PlanServe is closed")
-            self._queues.setdefault((name, bucket),
-                                    deque()).append(pend)
-            self._cond.notify_all()
+        rid = next(self._request_ids)
+        with obs.span("serve.submit", rid):
+            prog = self._program(name)
+            sizes = request_sizes(prog, arrays)
+            bucket = bucket_sizes(prog, sizes, self._quantum[name])
+            ticket = ServeTicket()
+            pend = _Pending(ticket, arrays, sizes, time.perf_counter(), rid)
+            with self._cond:
+                if self._closed:
+                    raise RuntimeError("PlanServe is closed")
+                self._queues.setdefault((name, bucket),
+                                        deque()).append(pend)
+                self._cond.notify_all()
         return ticket
 
     def serve(self, name: str, arrays: dict,
@@ -523,24 +549,29 @@ class PlanServe:
         while True:
             with self._cond:
                 key = self._pick_bucket()
-                while key is None and not self._closed:
-                    self._cond.wait()
-                    key = self._pick_bucket()
+                if key is None and not self._closed:
+                    with obs.span("serve.wait"):
+                        while key is None and not self._closed:
+                            self._cond.wait()
+                            key = self._pick_bucket()
                 if key is None and self._closed:
                     return
+                bid = next(self._batch_ids)
                 q = self._queues[key]
                 # collect: up to max_batch requests, or whatever arrived
                 # by the oldest request's deadline
                 deadline = q[0].t_submit + self.max_wait_s
-                while (len(q) < self.max_batch
-                       and not self._closed
-                       and (left := deadline - time.perf_counter()) > 0):
-                    self._cond.wait(timeout=left)
+                with obs.span("serve.collect", bid):
+                    while (len(q) < self.max_batch
+                           and not self._closed
+                           and (left := deadline - time.perf_counter()) > 0):
+                        self._cond.wait(timeout=left)
                 batch = [q.popleft()
                          for _ in range(min(len(q), self.max_batch))]
-            self._execute(key, batch)
+            with obs.span("serve.batch", bid):
+                self._execute(key, batch, bid)
 
-    def _execute(self, key, batch) -> None:
+    def _execute(self, key, batch, bid: int) -> None:
         name, bucket = key
         prog = self.programs[name]
         t_start = time.perf_counter()
@@ -548,27 +579,35 @@ class PlanServe:
         try:
             with self._on_device():
                 gen = self._get_compiled(name)
-                padded = [pad_to_bucket(prog, p.arrays, bucket,
-                                        device=self.device) for p in batch]
-                stacked = {k: torch.stack([p[k] for p in padded])
-                           for k in padded[0]}
+                with obs.span("serve.pad", bid):
+                    padded = [pad_to_bucket(prog, p.arrays, bucket,
+                                            device=self.device)
+                              for p in batch]
+                with obs.span("serve.stack", bid):
+                    stacked = {k: torch.stack([p[k] for p in padded])
+                               for k in padded[0]}
                 outputs = gen.fn(stacked)
-                outs = [unpad_outputs(prog, {k: v[i] for k, v in
-                                             outputs.items()}, p.sizes)
-                        for i, p in enumerate(batch)]
-                self._finish()
+                with obs.span("serve.unpad", bid):
+                    outs = [unpad_outputs(prog, {k: v[i] for k, v in
+                                                 outputs.items()}, p.sizes)
+                            for i, p in enumerate(batch)]
+                with obs.span("serve.finish", bid):
+                    self._finish()
         except Exception as err:
             for p in batch:
                 p.ticket._fail(err)
             return
         t_done = time.perf_counter()
-        for p, out in zip(batch, outs):
-            p.ticket.stats = {
-                "latency_ms": (t_done - p.t_submit) * 1e3,
-                "queue_wait_ms": (t_start - p.t_submit) * 1e3,
-                "batch_size": len(batch),
-                "bucket": bucket,
-            }
-            self.metrics.record_request(p.ticket.stats["latency_ms"],
-                                        p.ticket.stats["queue_wait_ms"])
-            p.ticket._resolve(out)
+        with obs.span("serve.resolve", bid):
+            for p, out in zip(batch, outs):
+                p.ticket.stats = {
+                    "latency_ms": (t_done - p.t_submit) * 1e3,
+                    "queue_wait_ms": (t_start - p.t_submit) * 1e3,
+                    "batch_size": len(batch),
+                    "bucket": bucket,
+                    "request_id": p.request_id,
+                    "batch_id": bid,
+                }
+                self.metrics.record_request(p.ticket.stats["latency_ms"],
+                                            p.ticket.stats["queue_wait_ms"])
+                p.ticket._resolve(out)
