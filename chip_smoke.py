@@ -609,16 +609,16 @@ def call_gates(records, tag: str, dtype=torch.bfloat16) -> tuple:
         *outer, nj, ni = run.sizes
         dev = args[0].device
 
-        def values(padded):
+        def values(padded, seated=()):
             padded = padded if isinstance(padded, (list, tuple)) \
                 else [padded]
-            return {o.name: assemble(call, o, p, nj, ni, tuple(outer),
-                                     lanes=True)
-                    for o, p in zip(call.outputs, padded)}
+            return {o.name: p if k in seated else
+                    assemble(call, o, p, nj, ni, tuple(outer), lanes=True)
+                    for k, (o, p) in enumerate(zip(call.outputs, padded))}
         outs, tensors = k1.launch_tensors(lay, run, args)
         k1.launch(lib, run, tensors, threads=run.threads,
                   stream=torch.cuda.current_stream(dev).cuda_stream)
-        got = values(outs)
+        got = values(outs, lay.seated_outs)
         want = values(plain.build_call(call, run.sizes, dtype,
                                        device=dev)[0](*args))
         exact = values(plain.build_call(call, run.sizes, torch.float64,
@@ -725,7 +725,8 @@ def drive(n: str, dims: dict, dev, flush, rate: float, smi: str,
                      f"{run.pchunk_len}x{run.chunk_len}"
                      for _, _, run, _ in records)
     smem = "+".join(str(run.smem_bytes) for _, _, run, _ in records)
-    used = [build.registers(k1.job(lay.call, dtype))
+    used = [build.registers(k1.job(lay.call, dtype,
+                                   seated=bool(lay.seated_outs)))
             for _, lay, _, _ in records]
     regs = "+".join(str(r) for r, _ in used)
     spill = "+".join(str(b) for _, b in used)

@@ -25,6 +25,9 @@ accumulators ``(1, width)``, kept-prefix accumulators
 (:func:`execute_plan`: size resolution through axiom shape contracts,
 environment threading, and the :func:`assemble` trim/seat/lane-reduce
 rules) is shared by every interpreter verbatim.  An interpreter that
+declares ``seats`` (the CUDA kernel) writes each ``external`` output
+:func:`seatable` admits straight into its goal array instead, and the
+host half takes that array as it is.  An interpreter that
 declares a ``build_batched`` runs a batch of examples (a leading batch
 axis on every array) through one host half and one launch of each call
 (:func:`execute_plan` with ``batched=True``): the counterpart of the
@@ -84,7 +87,13 @@ class InterpreterSpec:
     example's bits those of ``build_call``'s ``fn`` on that example.  The
     CUDA kernel declares one (one launch a batch); an interpreter without
     one runs a batch example by example
-    (:func:`repro_torch.core.engine.compile_batched`)."""
+    (:func:`repro_torch.core.engine.compile_batched`).
+
+    ``seats`` declares that ``build_call`` and ``build_batched`` take
+    ``seated=True`` and then return each output :func:`seatable` admits
+    as the environment array :func:`assemble` would make of its padded
+    one (its goal's shape, borders included), so the host half takes it
+    as it is.  The CUDA kernel declares it; the plain versions do not."""
 
     name: str
     build_call: Callable = field(compare=False)
@@ -94,6 +103,7 @@ class InterpreterSpec:
     description: str = ""
     layout_aware: bool = False
     build_batched: Optional[Callable] = field(default=None, compare=False)
+    seats: bool = False
 
 
 _REGISTRY: dict[str, InterpreterSpec] = {}
@@ -356,6 +366,27 @@ def _seated(shape, seat, part) -> torch.Tensor:
     return res
 
 
+def seatable(call: CallPlan, out: OutputPlan) -> bool:
+    """Whether a kernel may store ``out`` at its seat in the goal array
+    instead of the padded contract's rows: an ``external`` output whose
+    goal rows and outer tiles the call's padded grid covers, so that the
+    inverse of :func:`assemble`'s trim (padded row ``jid`` is goal row
+    ``jid + call.x_lo + out.lead``, padded tile ``t`` goal tile ``t +
+    call.outer_lo + out.outer_lead``) meets every element of the seat.
+    The rule reads the plan alone, never the sizes."""
+    if out.kind != "external":
+        return False
+    if not call.x_lo + out.lead <= out.j_lo \
+            or not out.j_hi - out.lead <= call.x_hi_off:
+        return False
+    for d in range(call.n_outer):
+        lead = out.outer_lead[d] if out.outer_lead else 0
+        if not call.outer_lo[d] + lead <= out.outer_lo[d] \
+                or not out.outer_hi[d] - lead <= call.outer_hi_off[d]:
+            return False
+    return True
+
+
 def assemble(call: CallPlan, out: OutputPlan, padded, nj: int, ni: int,
              n_outs: tuple[int, ...], *, lanes: bool = False,
              batched: bool = False):
@@ -440,7 +471,12 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
     so a plan outside the interpreter's declared feature set or dtypes
     raises :class:`PlanUnsupported` before anything builds.
     ``options`` are forwarded to ``build_call``, which runs once per
-    call and problem size (its callable is kept for later calls).
+    call and problem size (its callable is kept for later calls).  On an
+    interpreter that ``seats`` its outputs, the build is asked for them
+    at their seat, and an output :func:`seatable` admits enters the
+    environment as the kernel wrote it; every other ``external`` output
+    is filled and copied by :func:`assemble` and counted in the counter
+    ``plan.reseated`` (:mod:`repro_torch.obs`).
 
     ``batched=True`` builds the host half of a batch: every external
     array carries one leading batch axis (sizes come from the rest of
@@ -457,6 +493,7 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
         raise ValueError(f"interpreter {spec.name!r} declares no batched "
                          f"build_call")
     build = spec.build_batched if batched else spec.build_call
+    seat = {"seated": True} if spec.seats else {}
     lead = 1 if batched else 0
     unknown = set(options) - spec.flags
     if unknown:
@@ -503,7 +540,8 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
                 key = (ci, n_outs, nj, ni)
                 if key not in built:
                     built[key] = build(cp, (*n_outs, nj, ni), dtype,
-                                       device=device, **options)[0]
+                                       device=device, **seat,
+                                       **options)[0]
                 pcall = built[key]
                 with obs.span("plan.inputs"):
                     args = []
@@ -517,6 +555,11 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
                     padded = [padded]
                 with obs.span("plan.reseat"):
                     for out, pout in zip(cp.outputs, padded):
+                        if seat and seatable(cp, out):
+                            env[out.name] = pout
+                            continue
+                        if out.kind == "external":
+                            obs.count("plan.reseated")
                         env[out.name] = assemble(cp, out, pout, nj, ni,
                                                  n_outs, batched=batched)
             for hs in cp.host_post:

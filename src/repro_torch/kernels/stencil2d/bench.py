@@ -145,17 +145,12 @@ def capture(fn):
 
 def call_bytes(lay, run, args) -> int:
     """Bytes one call must move: each input read once (its own element
-    size), each output written once in the reference contract's shape
-    and the call's element type -- row outputs ``(*grid, steps_j, Ni)``,
+    size), each output written once in its shape and the call's element
+    type (``kernel.output_shapes``: a seated output's goal, else the
+    reference contract's -- row outputs ``(*grid, steps_j, Ni)``,
     accumulators ``(*grid[:n_kept], w)``, not the kernel's per-chunk
-    partial rows; a batched launch's for each of its examples."""
-    out = 0
-    for o in lay.call.outputs:
-        if o.acc is None:
-            out += math.prod(run.gsz) * run.steps_j * run.ni
-        else:
-            a = next(a for a in lay.call.accs if a.name == o.acc)
-            out += math.prod(run.gsz[:a.n_kept]) * (run.ni + a.w_off)
+    partial rows); a batched launch's for each of its examples."""
+    out = sum(math.prod(s) for s in k1.output_shapes(lay, run))
     return sum(t.numel() * t.element_size() for t in args) \
         + lay.itemsize * out * max(run.batch, 1)
 

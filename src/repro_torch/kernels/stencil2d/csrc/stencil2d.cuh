@@ -290,6 +290,44 @@ __device__ __forceinline__ void fill_row(float* __restrict__ row, int n,
   for (int c = threadIdx.x; c < n; c += blockDim.x) row[c] = v;
 }
 
+// Zero this block's share of the border rows of a goal array: its ND
+// dims (the outer tiles, then the rows) of extents ext, rows of n
+// values, the seat [a, b) in each.  The border is cut into disjoint
+// slabs (dim k below, then above its seat, the dims before k inside
+// theirs, the dims after k whole), its rows numbered slab after slab,
+// and a block zeroes rows part, part + parts, ... of them: once each
+// over a launch's parts blocks, apart from the row steps.
+template <int ND, typename T>
+__device__ void zero_border(T* __restrict__ goal, const long long (&ext)[ND],
+                            const long long (&a)[ND],
+                            const long long (&b)[ND], long long n,
+                            long long part, long long parts) {
+  const T z = from_float<T>(0.0f);
+  long long t = part, first = 0;
+  for (int k = 0; k < ND; ++k) {
+    for (int above = 0; above < 2; ++above) {
+      const long long lo = above ? b[k] : 0, hi = above ? ext[k] : a[k];
+      long long rows = hi - lo;
+      for (int d = 0; d < ND; ++d)
+        if (d != k) rows *= d < k ? b[d] - a[d] : ext[d];
+      for (; t < first + rows; t += parts) {
+        long long rest = t - first, at = 0, place = 1;
+        for (int d = ND - 1; d >= 0; --d) {
+          const long long span = d == k ? hi - lo
+                                 : d < k ? b[d] - a[d] : ext[d];
+          const long long off = d == k ? lo : d < k ? a[d] : 0;
+          at += (off + rest % span) * place;
+          rest /= span;
+          place *= ext[d];
+        }
+        T* const row = goal + at * n;
+        for (long long c = threadIdx.x; c < n; c += blockDim.x) row[c] = z;
+      }
+      first += rows;
+    }
+  }
+}
+
 // The steps one block walks for chunk `chunk` of length `len` of a range
 // of `steps`: [first, end), of which it owns [own, end).  `first` lies
 // `prime` steps before `own` (clamped to the range start), which refills

@@ -46,7 +46,7 @@ import math
 import re
 from dataclasses import dataclass
 
-from ...core.interpreters import PlanUnsupported
+from ...core.interpreters import PlanUnsupported, seatable
 from ...core.plan import CallPlan, WindowPlan
 
 #: Most threads a block runs, and the columns of a row each thread takes
@@ -403,11 +403,16 @@ def _per_sm(resident):
 
 class CallLayout:
     """What one :class:`CallPlan` needs at run time (see the module
-    docstring).  Raises :class:`PlanUnsupported` for calls outside the
-    kernel's shape."""
+    docstring).  With ``seated``, the kernel stores each output that
+    :func:`~repro_torch.core.interpreters.seatable` admits at its seat in
+    the goal array (``seated_outs``).  Raises :class:`PlanUnsupported`
+    for calls outside the kernel's shape."""
 
-    def __init__(self, call: CallPlan, dtype="float32"):
+    def __init__(self, call: CallPlan, dtype="float32", seated: bool = False):
         self.call = call
+        #: the outputs stored at their seat, in the goal's shape
+        self.seated_outs = [k for k, o in enumerate(call.outputs)
+                            if seated and seatable(call, o)]
         #: the element type's :data:`ELEMENTS` key and bytes
         self.dtype = dtype_name(dtype)
         self.itemsize = ELEMENTS[self.dtype][1]
@@ -775,8 +780,8 @@ def _lin(dims, sizes) -> str:
     return expr
 
 
-def emit_source(call: CallPlan, dtype="float32",
-                batched: bool = False) -> str:
+def emit_source(call: CallPlan, dtype="float32", batched: bool = False,
+                seated: bool = False) -> str:
     """The CUDA source of ``call``'s kernel for element type ``dtype``
     (see the module docstring).  A bf16 or float16 source converts each
     element it loads to float and rounds each value it stores to a window
@@ -788,8 +793,17 @@ def emit_source(call: CallPlan, dtype="float32",
     single call's followed by the bytes each pointer advances from one
     example to the next (``hfav::example``); each example's blocks run
     the single call's code on that example's operands, global scratch
-    and fold tickets, so each example's bits are its single call's."""
-    lay = CallLayout(call, dtype)
+    and fold tickets, so each example's bits are its single call's.
+
+    ``seated=True`` stores each output of ``CallLayout(call, dtype,
+    True).seated_outs`` in its goal array, ``(*osz, nj, ni)``, where the
+    padded contract's row ``jid`` is goal row ``jid + x_lo + lead`` (of
+    goal tiles ``op + outer_lead``): the rows and tiles of the seat take
+    the values, and the border rows and tiles outside it zeros, each
+    block zeroing its share of them after its row steps
+    (``hfav::zero_border``) -- what ``assemble`` makes of the padded
+    output.  Without it the source is the padded contract's."""
+    lay = CallLayout(call, dtype, seated)
     et = ELEMENTS[lay.dtype][0]
     half = lay.itemsize == 2  # a 2-byte element: bf16 or float16
     to_float, from_float = CONVERSIONS.get(lay.dtype, (None, None))
@@ -1105,6 +1119,35 @@ def emit_source(call: CallPlan, dtype="float32",
             f"const int {ptr} = hfav::slot(x + ({rd.j_off}), {b.stages}) * "
             f"(int){bw} + ({rd.col0 - b.i_lo});"]
 
+    def seat_dims(o, names):
+        """(name, extent, seat's lo and hi offsets) of each goal dim of
+        output ``o``: its outer tiles, then its rows."""
+        return list(zip(names, [f"osz{d}" for d in range(n_out)] + ["nj"],
+                        o.outer_lo + (o.j_lo,), o.outer_hi + (o.j_hi,)))
+
+    def seated_store(o, oi: int, dst: str, ok: str, pre: str, col0: int,
+                     width_: str) -> list[str]:
+        """C lines seating output ``oi``'s row of this row step: its goal
+        tiles ``{pre}g<d>`` and row ``{pre}r`` (the inverse of
+        ``assemble``'s trim), whether the block owns a row of the seat
+        there (``ok``), the row ``dst``, and its columns outside the
+        step's own filled as the padded row's are."""
+        olead = o.outer_lead or (0,) * n_out
+        g = [f"{pre}g{d}" for d in range(n_out)]
+        r = f"{pre}r"
+        lines = [f"const long long {g[d]} = op{d} + ({olead[d]});"
+                 for d in range(n_out)]
+        lines.append(f"const int {r} = x + ({o.lead});")
+        conds = ["own"] + [f"{v} >= {lo} && {v} < {n} + ({hi})"
+                           for v, n, lo, hi in seat_dims(o, g + [r])]
+        lines.append(f"const bool {ok} = {' && '.join(conds)};")
+        plane = _lin(g, [f"osz{d}" for d in range(n_out)])
+        lines.append(f"{et}* const {dst} = {ok} ? P.p[{nin + oi}] + "
+                     f"({plane} * nj + {r}) * ni : P.p[{nin + oi}];")
+        lines.append(f"if ({ok}) hfav::fill_outside({dst}, (int)ni, {col0}, "
+                     f"{col0} + {width_}, {c_float(o.fill)});")
+        return lines
+
     for ph, steps in enumerate(lay.phases):
         if ph:
             w("    __syncthreads();")
@@ -1183,6 +1226,14 @@ def emit_source(call: CallPlan, dtype="float32",
                                 f"({step.lead}), {b.stages}) * {bw} + "
                                 f"({step.out_col0 - b.i_lo});")
                             body.append(f"{dst}[c] = {store(f'v{vi}')};")
+                        elif int(tgt) in lay.seated_outs:
+                            dst_ok = f"s{si}_in{vi}_{ti}"
+                            pre_lines += seated_store(
+                                call.outputs[int(tgt)], int(tgt), dst, dst_ok,
+                                f"s{si}_o{vi}_{ti}_", step.out_col0,
+                                f"s{si}_W")
+                            body.append(f"if ({dst_ok}) {dst}[{step.out_col0}"
+                                        f" + c] = {store(f'v{vi}')};")
                         else:
                             oi = int(tgt)
                             outer_lin = _lin([f"o{d}" for d in range(n_out)],
@@ -1243,6 +1294,20 @@ def emit_source(call: CallPlan, dtype="float32",
     w("    // -- end of row step --")
     w("  }")
     w("  hfav::wait_ring_n(0);")
+    # the seated outputs' border rows and tiles, outside their seat, hold
+    # zero (as assemble's goal array): each block zeroes its share of them
+    for oi in lay.seated_outs:
+        o = call.outputs[oi]
+        dims = seat_dims(o, [""] * (n_out + 1))
+        if not any(lo or hi for _, _, lo, hi in dims):
+            continue
+        seat_a = [f"hfav::clamp({lo}, 0, {n})" for _, n, lo, _ in dims]
+        seat_b = [f"hfav::clamp({n} + ({hi}), {a}, {n})"
+                  for (_, n, _, hi), a in zip(dims, seat_a)]
+        w(f"  hfav::zero_border<{n_out + 1}>(P.p[{nin + oi}], "
+          f"{{{', '.join(n for _, n, _, _ in dims)}}}, "
+          f"{{{', '.join(seat_a)}}}, {{{', '.join(seat_b)}}}, ni, {bid}, "
+          f"nblocks);")
 
     # 4. the device fold of each accumulator's partial rows, in
     # lane_reduce's order: in groups of FOLD_GROUP (partial p in group

@@ -47,11 +47,19 @@ single call's blocks once for each example, each on its own operands,
 global scratch and fold tickets, at the single call's chunking, so each
 example's bits are its single call's.
 
+The host half (:func:`~repro_torch.core.interpreters.execute_plan`) asks
+for seated outputs (``seated=True``; the interpreter declares ``seats``):
+each ``external`` output the plan's rule admits
+(:func:`~repro_torch.core.interpreters.seatable`) is then stored at its
+seat in a goal-shaped array, borders included, so the host neither fills
+nor copies it.  Without ``seated`` the outputs keep the padded contract.
+
 The build (``nvcc`` at first use, cached by content in
 ``build/repro_torch/``) is :mod:`repro_torch.kernels.build`'s.  The kernel
 refuses CPU tensors and any dtype but float32, bf16 and float16; a failed
 build or launch raises.  The counter ``k1.launch``
-(:mod:`repro_torch.obs`) counts the launches made; ``launches`` reads it.
+(:mod:`repro_torch.obs`) counts the launches made, ``launches`` reads it;
+``k1.seated`` counts the outputs a launch stored at their seat.
 """
 from __future__ import annotations
 
@@ -96,41 +104,46 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hfav_error_string.restype = ctypes.c_char_p
 
 
-def job(call: CallPlan, dtype=torch.float32,
-        batched: bool = False) -> build.Job:
+def job(call: CallPlan, dtype=torch.float32, batched: bool = False,
+        seated: bool = False) -> build.Job:
     """The build job of ``call``'s emitted kernel for ``dtype`` (with
-    ``batched``, of its kernel over a batch of examples)."""
-    return build.Job(emit_source(call, dtype, batched), (HEADER,), CSRC,
-                     _bind)
+    ``batched``, of its kernel over a batch of examples; with ``seated``,
+    of its kernel storing outputs at their seat)."""
+    return build.Job(emit_source(call, dtype, batched, seated), (HEADER,),
+                     CSRC, _bind)
 
 
-def _call_key(call: CallPlan, dtype):
-    return call, tuple(fn_key(f) for f in call.fns), dtype_name(dtype)
+def _call_key(call: CallPlan, dtype, seated: bool):
+    return (call, tuple(fn_key(f) for f in call.fns), dtype_name(dtype),
+            seated)
 
 
-def layout(call: CallPlan, dtype=torch.float32) -> CallLayout:
+def layout(call: CallPlan, dtype=torch.float32,
+           seated: bool = False) -> CallLayout:
     """``call``'s :class:`~repro_torch.kernels.stencil2d.emit.CallLayout`
-    for ``dtype`` (memoized per plan, kernel bodies and dtype)."""
-    key = _call_key(call, dtype)
+    for ``dtype`` (memoized per plan, kernel bodies, dtype and
+    ``seated``)."""
+    key = _call_key(call, dtype, seated)
     if key not in _CALLS:
-        _CALLS[key] = [CallLayout(call, dtype), None, None]
+        _CALLS[key] = [CallLayout(call, dtype, seated), None, None]
     return _CALLS[key][0]
 
 
-def build_library(call: CallPlan, dtype=torch.float32,
-                  batched: bool = False) -> ctypes.CDLL:
+def build_library(call: CallPlan, dtype=torch.float32, batched: bool = False,
+                  seated: bool = False) -> ctypes.CDLL:
     """The loaded library of ``call``'s kernel for ``dtype`` (with
-    ``batched``, of its batched kernel), built on first use.  The batched
-    kernel's build builds the single call's beside it (one ``nvcc`` each,
-    started together): the single kernel's residency fixes a batched
-    launch."""
-    layout(call, dtype)
-    entry = _CALLS[_call_key(call, dtype)]
+    ``batched``, of its batched kernel; with ``seated``, storing outputs
+    at their seat), built on first use.  The batched kernel's build
+    builds the single call's beside it (one ``nvcc`` each, started
+    together): the single kernel's residency fixes a batched launch."""
+    layout(call, dtype, seated)
+    entry = _CALLS[_call_key(call, dtype, seated)]
     missing = [b for b in ((False, True) if batched else (False,))
                if entry[1 + b] is None]
     if missing:
         with _LOCK:
-            libs = build.build([job(call, dtype, b) for b in missing])[0]
+            libs = build.build([job(call, dtype, b, seated)
+                                for b in missing])[0]
             for b, lib in zip(missing, libs):
                 entry[1 + b] = lib
     return entry[1 + batched]
@@ -190,12 +203,15 @@ def input_shapes(call: CallPlan, sizes) -> list[tuple[int, ...]]:
 
 
 def output_shapes(lay: CallLayout, run) -> list[tuple[int, ...]]:
-    """The padded output shapes of one example under the reference
-    contract: row outputs ``(*grid, steps_j, Ni)``, accumulators
-    ``(1, w)`` or ``(*grid[:n_kept], w)``."""
+    """The output shapes of one example: a seated output's goal,
+    ``(*outer_sizes, Nj, Ni)``; else the reference contract's padded
+    shapes, row outputs ``(*grid, steps_j, Ni)``, accumulators ``(1, w)``
+    or ``(*grid[:n_kept], w)``."""
     shapes = []
     for k, o in enumerate(lay.call.outputs):
-        if o.acc is None:
+        if k in lay.seated_outs:
+            shapes.append(tuple(run.sizes))
+        elif o.acc is None:
             shapes.append((*run.gsz, run.steps_j, run.ni))
         else:
             a = lay.acc_of(k)
@@ -205,7 +221,7 @@ def output_shapes(lay: CallLayout, run) -> list[tuple[int, ...]]:
 
 
 def alloc_outputs(lay: CallLayout, run, device):
-    """The kernel's padded outputs (:func:`output_shapes`, with a
+    """The kernel's outputs (:func:`output_shapes`, with a
     leading batch axis in a batched launch) in ``lay``'s dtype, and its
     global scratch (the blocks' regions where they do not fit shared
     memory, the accumulators' partial rows; in 4-byte words, float32;
@@ -278,20 +294,25 @@ def launch(lib, run, tensors, *, threads: int, stream) -> None:
 def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
     """Allocate ``run``'s outputs and scratch beside ``args`` and launch
     the kernel of ``lib`` on ``stream`` (which folds the accumulators);
-    returns the padded outputs under the reference contract.  A launch
-    of no blocks leaves each accumulator at its identity."""
+    returns the outputs, seated or padded (:func:`output_shapes`).  A
+    launch of no blocks leaves each accumulator at its identity and each
+    seated output's goal at zero."""
     outs, tensors = launch_tensors(lay, run, args)
     if run.nblocks:
         launch(lib, run, tensors, threads=threads, stream=stream)
         obs.count("k1.launch")
+        if lay.seated_outs:
+            obs.count("k1.seated", len(lay.seated_outs))
     else:
         for k in lay.acc_outs:
             outs[k].fill_(lay.acc_of(k).init)
+        for k in lay.seated_outs:
+            outs[k].zero_()
     return outs if len(outs) > 1 else outs[0]
 
 
 def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
-               device=None, chunk=None, plane_chunk=None):
+               device=None, chunk=None, plane_chunk=None, seated=False):
     """Concretize one :class:`CallPlan` on the CUDA kernel.
 
     ``sizes`` is ``(*outer_sizes, Nj, Ni)``; returns ``(fn, steps_j)``
@@ -304,31 +325,36 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     waves of the blocks an SM holds of the built kernel.  The kernel is
     built, and its launch fixed, at the first call.  ``dtype`` is
     float32, bf16 or float16; any other raises
-    :class:`PlanUnsupported`."""
-    return _build(call, sizes, dtype, chunk, plane_chunk, batched=False)
+    :class:`PlanUnsupported`.  With ``seated``, each output
+    :func:`~repro_torch.core.interpreters.seatable` admits comes back at
+    its seat, in its goal's shape ``(*outer_sizes, Nj, Ni)``, as
+    ``assemble`` would make it of the padded one."""
+    return _build(call, sizes, dtype, chunk, plane_chunk, False, seated)
 
 
 def build_batched(call: CallPlan, sizes: tuple[int, ...], dtype, *,
-                  device=None, chunk=None, plane_chunk=None):
+                  device=None, chunk=None, plane_chunk=None, seated=False):
     """:func:`build_call` over a batch: ``fn`` maps the call's inputs,
     each with one leading batch axis of the same width ``B >= 1``, to
-    its padded outputs with that leading axis, in **one** launch of the
+    its outputs (padded, or with ``seated`` as :func:`build_call`'s) with
+    that leading axis, in **one** launch of the
     batched kernel for the whole batch.  The launch is the single
     call's at ``sizes`` (its chunk and plane-chunk lengths, chosen from
     the single kernel's residency or forced as in :func:`build_call`),
     so each example's bits equal its single call's.  Both kernels are
     built at the first call; a failed build or launch raises."""
-    return _build(call, sizes, dtype, chunk, plane_chunk, batched=True)
+    return _build(call, sizes, dtype, chunk, plane_chunk, True, seated)
 
 
-def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool):
+def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool,
+           seated: bool):
     dtype_name(dtype)  # raises PlanUnsupported for another dtype
     if len(sizes) != call.n_outer + 2:
         raise ValueError(f"call {call.name} has n_outer={call.n_outer} but "
                          f"got sizes {sizes}")
     require_linked_fns(call)
     require_hazard_free(call)
-    lay = layout(call, dtype)
+    lay = layout(call, dtype, seated)
     in_shapes = input_shapes(call, sizes)
     steps_j = max(0, sizes[-2] + call.x_hi_off - call.x_lo)
     built = []  # (library, single launch, SMs), fixed at the first call
@@ -349,12 +375,13 @@ def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool):
         with torch.cuda.device(dev), obs.span("k1.launch"):
             if not built:
                 with obs.span("kernel.build"):
-                    lib = build_library(call, dtype, batched)
+                    lib = build_library(call, dtype, batched, seated)
                     sms = torch.cuda.get_device_properties(
                         dev).multi_processor_count
                     # a batched launch is the single call's, once an
                     # example
-                    resident = occupancy(build_library(call, dtype))
+                    resident = occupancy(build_library(call, dtype,
+                                                       seated=seated))
                     built.append((lib, lay.concretize(
                         tuple(sizes), resident, chunk, sms, plane_chunk),
                         sms))
@@ -377,6 +404,7 @@ register_interpreter(InterpreterSpec(
     name="cuda",
     build_call=build_call,
     build_batched=build_batched,
+    seats=True,
     # the reference Pallas kernel's set: unit-stride reads only, no
     # LayoutApply constructs (kernel.py:511-512 of the JAX package)
     capabilities=STENCIL_CAPABILITIES,
