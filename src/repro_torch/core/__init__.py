@@ -33,7 +33,7 @@ from .plancheck import (Diagnostic, PlanCheckError, PlanCheckWarning,
                         check_plan, has_errors, pad_to_lane,
                         sizes_from_arrays, vmem_bytes, vmem_report)
 from .planner import PallasGenerated, plan_pallas
-from .programs import ALL_PROGRAMS
+from .programs import ALL_PROGRAMS, PORT_ONLY
 from .reuse import analyze_storage, reuse_graph, reuse_order
 from .rules import Extent, KernelRule, Program, axiom, goal, kernel
 from .terms import Term, parse_term, unify_term
@@ -48,7 +48,8 @@ __all__ = [
     "FusedSchedule", "Generated", "HANDLED_HINTS", "IDAG",
     "InferenceError", "InterpreterSpec", "KernelPlan", "KernelRule",
     "LanePass", "LayoutApplyResult", "LayoutHint", "PLAN_FEATURES",
-    "PallasGenerated", "PallasUnsupported", "PlanCache", "PlanCheckError",
+    "PORT_ONLY", "PallasGenerated", "PallasUnsupported", "PlanCache",
+    "PlanCheckError",
     "PlanCheckWarning", "PlanSerializationError", "PlanUnsupported",
     "Program", "SCHEMA_VERSION", "Term", "Unfusable", "VecLoadPlan",
     "VecReport", "analyze_storage", "apply_layout", "attach_layout_hints",

@@ -351,9 +351,11 @@ def _plan_nest(plan: StoragePlan, idag: IDAG, nest_idx: int) -> CallPlan:
                     require_same_step_position(vp.name, vp.kind, lead + oj,
                                                np_.lead(p.gid, jdim))
                 p_ilo = p.extent[inner].lo if inner in p.extent else 0
+                # a same-step row: its row is the consumer's (and so
+                # the producer's) lead
                 reads.append(
-                    ReadPlan(f"local:{vp.name}", 0, (c_ilo + oi) - p_ilo,
-                             c_w))
+                    ReadPlan(f"local:{vp.name}", lead + oj,
+                             (c_ilo + oi) - p_ilo, c_w))
             else:
                 require_representable_read(vp.name, vp.kind)
 

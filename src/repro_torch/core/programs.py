@@ -1,7 +1,9 @@
 """The paper's worked examples as HFAV programs.
 
 The port's copy of ``repro.core.programs``: the same 15 programs, rules
-and kernel bodies.  The bodies call ``where``/``sqrt`` from
+and kernel bodies, and one program of the port's own
+(:data:`PORT_ONLY`): :func:`~repro_torch.core.hydro2d.hydro2d_program`,
+HydroC's whole split step.  The bodies call ``where``/``sqrt`` from
 :mod:`repro_torch.core.elementwise` instead of ``jnp``, so one body runs
 eagerly on torch tensors and lowers to C under the CUDA emitter.
 
@@ -65,6 +67,7 @@ warmer (``scripts/warm_cache.py``) and parametrized tests.
 from __future__ import annotations
 
 from .elementwise import sqrt, where
+from .hydro2d import hydro2d_program
 from .rules import Program, axiom, goal, kernel
 
 
@@ -795,4 +798,9 @@ ALL_PROGRAMS = {
     "normalization": normalization_program,
     "cosmo": cosmo_program,
     "hydro1d": hydro1d_program,
+    "hydro2d": hydro2d_program,
 }
+
+#: The programs of :data:`ALL_PROGRAMS` the reference package lacks:
+#: their golden plans live under tests/goldens/port_plans/.
+PORT_ONLY = ("hydro2d",)

@@ -59,7 +59,9 @@ def make_inputs(name: str, kplan, dims: dict, seed: int, device,
                 round_to=None) -> dict:
     """One seeded float32 array per axiom of ``kplan``, shaped by its
     extents at ``dims`` (loop dim -> size); hydro1d's density is kept
-    positive as in the repository's hydro benchmark.  ``round_to`` (bf16
+    positive as in the repository's hydro benchmark, and hydro2d's
+    density and total energy are drawn as the port's benchmark draws
+    them (``x * x + 1``, ``x * x + 20``).  ``round_to`` (bf16
     or float16) rounds each value to that type (kept float32, each value
     exact in both, so a float64 run of the same inputs gives the exact
     value)."""
@@ -72,6 +74,8 @@ def make_inputs(name: str, kplan, dims: dict, seed: int, device,
         a = rng.standard_normal(shape, dtype=np.float32)
         if name == "hydro1d" and ax.array == "rho":
             a = a * a + 1.0
+        if name == "hydro2d" and ax.array in ("rho", "E"):
+            a = a * a + (1.0 if ax.array == "rho" else 20.0)
         t = torch.from_numpy(a)
         out[ax.array] = (t.to(round_to).float() if round_to
                          else t).to(device)

@@ -523,6 +523,27 @@ int occupancy(Kernel kernel, int threads, long long smem_bytes) {
 #endif
 }
 
+// The built kernel's registers a thread and local memory a thread
+// (spills and stack, bytes) in `out` (cudaFuncGetAttributes); 0, or
+// minus the error code.  The emulation answers from its occupancy
+// model: 64 registers, no local memory.
+template <typename Kernel>
+int attrs(Kernel kernel, long long* out) {
+#ifdef HFAV_EMULATE
+  (void)kernel;
+  out[0] = 64;
+  out[1] = 0;
+  return 0;
+#else
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<long long>(a.localSizeBytes);
+  return 0;
+#endif
+}
+
 }  // namespace hfav
 
 // The emulation's block order (emulate.h), set by the tests.
@@ -546,6 +567,9 @@ int occupancy(Kernel kernel, int threads, long long smem_bytes) {
   }                                                                       \
   extern "C" int hfav_occupancy(int threads, long long smem_bytes) {       \
     return hfav::occupancy(KERNEL, threads, smem_bytes);                  \
+  }                                                                       \
+  extern "C" int hfav_attrs(long long* out) {                             \
+    return hfav::attrs(KERNEL, out);                                      \
   }                                                                       \
   extern "C" const char* hfav_error_string(int e) {                       \
     return cudaGetErrorString(static_cast<cudaError_t>(e));               \

@@ -59,7 +59,9 @@ The build (``nvcc`` at first use, cached by content in
 refuses CPU tensors and any dtype but float32, bf16 and float16; a failed
 build or launch raises.  The counter ``k1.launch``
 (:mod:`repro_torch.obs`) counts the launches made, ``launches`` reads it;
-``k1.seated`` counts the outputs a launch stored at their seat.
+``k1.seated`` counts the outputs a launch stored at their seat; each
+source loaded adds 1 to ``k1.attrs`` and its registers and local (spill)
+bytes a thread to ``k1.regs`` and ``k1.local_bytes``.
 """
 from __future__ import annotations
 
@@ -102,6 +104,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hfav_occupancy.restype = ctypes.c_int
     lib.hfav_error_string.argtypes = [ctypes.c_int]
     lib.hfav_error_string.restype = ctypes.c_char_p
+    lib.hfav_attrs.argtypes = [ctypes.c_void_p]
+    lib.hfav_attrs.restype = ctypes.c_int
+
+
+def attrs(lib: ctypes.CDLL) -> dict:
+    """The built kernel's ``regs`` (registers a thread) and
+    ``local_bytes`` (local memory a thread: spills and stack), from
+    ``cudaFuncGetAttributes``; raises when the query fails."""
+    out = (ctypes.c_longlong * 2)()
+    rc = lib.hfav_attrs(out)
+    if rc != 0:
+        raise RuntimeError(f"stencil kernel attribute query failed: "
+                           f"{lib.hfav_error_string(-rc).decode()} ({-rc})")
+    return {"regs": out[0], "local_bytes": out[1]}
 
 
 def job(call: CallPlan, dtype=torch.float32, batched: bool = False,
@@ -145,6 +161,10 @@ def build_library(call: CallPlan, dtype=torch.float32, batched: bool = False,
             libs = build.build([job(call, dtype, b, seated)
                                 for b in missing])[0]
             for b, lib in zip(missing, libs):
+                a = attrs(lib)
+                obs.count("k1.attrs")
+                obs.count("k1.regs", a["regs"])
+                obs.count("k1.local_bytes", a["local_bytes"])
                 entry[1 + b] = lib
     return entry[1 + batched]
 

@@ -6,7 +6,8 @@ golden-plan corpus into ``DIR``); the port of the reference's
 Run from the repository root::
 
     PYTHONPATH=src python -m repro_torch.scripts.warm_cache --cache-dir DIR
-    PYTHONPATH=src python -m repro_torch.scripts.warm_cache --goldens DIR
+    PYTHONPATH=src python -m repro_torch.scripts.warm_cache --goldens DIR \
+        [--port-goldens DIR]
 
 A warmed cache directory lets a later process compile these programs
 without the analysis pipeline: ``compile_program(prog,
@@ -14,9 +15,12 @@ plan_cache_dir=DIR)`` loads the serialized
 :class:`~repro_torch.core.plan.KernelPlan` (keyed on the program, the
 plan schema, the torch and CUDA versions and the port's version:
 :mod:`repro_torch.core.plancache`), re-validates it and builds the
-interpreter directly.  ``--goldens`` writes each plan's ``to_dict``
-form, one ``<program>.json`` per program, as the reference's corpus is
-written (the kernel bodies' module is the port's).  Every plan is gated
+interpreter directly.  ``--goldens`` writes each plan of the
+reference's programs in its ``to_dict`` form, one ``<program>.json``
+per program, as the reference's corpus is written (the kernel bodies'
+module is the port's);
+``--port-goldens`` writes the port's own programs (``PORT_ONLY``, which
+the reference's corpus does not hold) the same way.  Every plan is gated
 on the static analyzer first: a plan with an error-severity finding is
 persisted nowhere, and the exit status is 1.
 """
@@ -33,7 +37,7 @@ from ..core.infer import infer
 from ..core.plancache import PlanCache, program_plan_key
 from ..core.plancheck import check_plan, has_errors
 from ..core.planner import plan_pallas
-from ..core.programs import ALL_PROGRAMS
+from ..core.programs import ALL_PROGRAMS, PORT_ONLY
 from ..core.reuse import analyze_storage
 
 
@@ -59,16 +63,22 @@ def main(argv=None) -> int:
                     help="plan-cache directory to warm (created if "
                          "missing)")
     ap.add_argument("--goldens", default=None, metavar="DIR",
-                    help="directory to write the golden corpus into "
-                         "(<program>.json each; created if missing)")
+                    help="directory to write the golden corpus of the "
+                         "reference's programs into (<program>.json "
+                         "each; created if missing)")
+    ap.add_argument("--port-goldens", default=None, metavar="DIR",
+                    help="directory to write the port's own programs' "
+                         "goldens into (created if missing)")
     args = ap.parse_args(argv)
-    if args.cache_dir is None and args.goldens is None:
+    if args.cache_dir is None and args.goldens is None \
+            and args.port_goldens is None:
         ap.error("nothing to do: pass --cache-dir and/or --goldens DIR")
 
     cache = PlanCache(args.cache_dir) if args.cache_dir else None
-    golden_dir = pathlib.Path(args.goldens) if args.goldens else None
-    if golden_dir is not None:
-        golden_dir.mkdir(parents=True, exist_ok=True)
+    dirs = {False: args.goldens, True: args.port_goldens}
+    dirs = {k: pathlib.Path(v) for k, v in dirs.items() if v}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
     refused = 0
     for name, build in sorted(ALL_PROGRAMS.items()):
         program, kplan = plan_program(build)
@@ -88,14 +98,15 @@ def main(argv=None) -> int:
         if cache is not None:
             stored = cache.put(program_plan_key(program), kplan)
             what.append("cached" if stored else "NOT SERIALIZABLE")
+        golden_dir = dirs.get(name in PORT_ONLY)
         if golden_dir is not None:
             (golden_dir / f"{name}.json").write_text(golden_text(kplan))
             what.append("golden")
         print(f"  {name:24s} {len(kplan.calls)} call(s)  [{', '.join(what)}]")
     if cache is not None:
         print(f"warmed {args.cache_dir}: {len(cache)} entr(y/ies)")
-    if golden_dir is not None:
-        print(f"wrote goldens to {golden_dir}")
+    for d in dirs.values():
+        print(f"wrote goldens to {d}")
     if refused:
         print(f"refused to persist {refused} plan(s) with error-severity "
               f"findings (see python -m repro_torch.scripts.plan_lint)")

@@ -24,7 +24,6 @@ without one.
 import ctypes
 import hashlib
 import json
-import pathlib
 import re
 import shutil
 import subprocess
@@ -33,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from _goldens import golden_path
+from _inputs import hydro2d_state
 from repro_torch.core import (ALL_PROGRAMS, PlanUnsupported,
                               compile_program, from_reference_dict)
 from repro_torch.core.interpreters import (STENCIL_CAPABILITIES,
@@ -45,7 +46,6 @@ from repro_torch.kernels.stencil2d.emit import (COLS_PER_THREAD, CallLayout,
                                                 LoweringError, c_float,
                                                 emit_source, lower_body)
 
-GOLDEN_DIR = pathlib.Path(__file__).resolve().parent / "goldens" / "plans"
 EMULATE_H = k1.CSRC / "emulate.h"
 DIM = {"i": 20, "j": 7, "k": 4, "l": 3}
 
@@ -127,7 +127,7 @@ def test_wrong_output_count_raises():
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
 def test_golden_plan_sources_are_stable(name):
     kplan = from_reference_dict(
-        json.loads((GOLDEN_DIR / f"{name}.json").read_text()))
+        json.loads(golden_path(name).read_text()))
     for call in kplan.calls:
         if not call.has_grid:
             continue
@@ -452,7 +452,9 @@ def _arrays(kplan, rng, dims=DIM):
     for ax in kplan.axioms:
         ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
         shape = [sizes[ext[d][0]] + ext[d][2] - ext[d][1] for d in ax.dims]
-        out[ax.array] = rng.standard_normal(shape).astype(np.float32)
+        out[ax.array] = hydro2d_state(
+            kplan.program, ax.array,
+            rng.standard_normal(shape).astype(np.float32))
     return out
 
 

@@ -142,7 +142,7 @@ def test_layout_constructs_are_refused(interp):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("split_win", [False, True])
-@pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
+@pytest.mark.parametrize("name", sorted(REF_PROGRAMS))
 def test_auto_routing_matches_reference(name, split_win):
     """``"auto"`` offers a program to the stencil interpreter exactly
     when the reference's ``pallas_auto_viable`` does, with and without

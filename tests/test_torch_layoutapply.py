@@ -31,7 +31,7 @@ from repro_torch.core.plan import (AxiomPlan, CallPlan, GridDim, InputPlan,
 from repro_torch.core.plancheck import LANE
 
 TOL = dict(atol=2e-4, rtol=1e-3)
-NAMES = sorted(ALL_PROGRAMS)
+NAMES = sorted(REF_PROGRAMS)
 
 
 @pytest.fixture(autouse=True)

@@ -3,7 +3,6 @@
 ``from_reference_dict`` turns the JAX package's serialized plans into
 the same validated port plans."""
 import json
-import pathlib
 
 import pytest
 
@@ -19,10 +18,10 @@ from repro_torch.core.infer import infer
 from repro_torch.core.plan import (PORT_PROGRAMS, REFERENCE_PROGRAMS,
                                    KernelPlan, from_reference_dict)
 from repro_torch.core.planner import plan_pallas
-from repro_torch.core.programs import ALL_PROGRAMS
+from repro_torch.core.programs import ALL_PROGRAMS, PORT_ONLY
 from repro_torch.core.reuse import analyze_storage
 
-GOLDEN_DIR = pathlib.Path(__file__).resolve().parent / "goldens" / "plans"
+from _goldens import GOLDEN_DIR, PORT_GOLDEN_DIR, golden_path
 
 
 def _plan(name) -> KernelPlan:
@@ -33,34 +32,42 @@ def _plan(name) -> KernelPlan:
 
 def _golden_text(kplan: KernelPlan) -> str:
     """The plan serialized as ``scripts/warm_cache.py --goldens`` writes
-    it, with the port's body module named as the reference's."""
+    it, with the port's body module named as the reference's (the
+    port's own programs keep theirs)."""
     text = json.dumps(kplan.to_dict(), indent=1, sort_keys=True) + "\n"
     return text.replace(f'"module": "{PORT_PROGRAMS}"',
                         f'"module": "{REFERENCE_PROGRAMS}"')
 
 
+def _module(name) -> str:
+    """The module of ``name``'s kernel bodies."""
+    return ALL_PROGRAMS[name].__module__
+
+
 def test_golden_corpus_covers_every_program():
-    assert {p.stem for p in GOLDEN_DIR.glob("*.json")} == set(ALL_PROGRAMS)
+    assert {p.stem for p in GOLDEN_DIR.glob("*.json")} == set(REF_PROGRAMS)
+    assert {p.stem for p in PORT_GOLDEN_DIR.glob("*.json")} == \
+        set(PORT_ONLY)
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
 def test_planner_reproduces_golden_bytes(name):
     kplan = _plan(name)
-    assert _golden_text(kplan) == (GOLDEN_DIR / f"{name}.json").read_text()
-    assert f'"module": "{PORT_PROGRAMS}"' in json.dumps(kplan.to_dict())
+    assert _golden_text(kplan) == golden_path(name).read_text()
+    assert f'"module": "{_module(name)}"' in json.dumps(kplan.to_dict())
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
 def test_from_reference_dict_round_trips_golden(name):
-    golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
+    golden = json.loads(golden_path(name).read_text())
     kplan = from_reference_dict(golden)
     assert kplan == _plan(name)
     assert kplan.cache_key() == _plan(name).cache_key()
     for call in kplan.calls:
         for fn in call.fns:
             assert getattr(fn, "_plan_base_fn", fn).__module__ == \
-                PORT_PROGRAMS
-    assert _golden_text(kplan) == (GOLDEN_DIR / f"{name}.json").read_text()
+                _module(name)
+    assert _golden_text(kplan) == golden_path(name).read_text()
 
 
 @pytest.mark.parametrize("name", ["row_sum", "normalization", "cosmo"])

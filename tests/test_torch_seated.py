@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _inputs import hydro2d_state
 from repro_torch import obs
 from repro_torch.core import ALL_PROGRAMS, compile_program
 from repro_torch.core.interpreters import (assemble, execute_plan,
@@ -72,6 +73,7 @@ def inputs(name, kplan, rng, dtype, dims=DIM):
         a = rng.standard_normal(shape).astype(np.float32)
         if name == "hydro1d" and ax.array == "rho":
             a = a * a + 1.0
+        a = hydro2d_state(name, ax.array, a)
         out[ax.array] = torch.from_numpy(a).to(dtype).float()
     return out
 
@@ -90,7 +92,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def test_seatable_reads_the_plan():
     """Every program's ``external`` outputs are seated (cosmo's j 2 -2
-    at x_lo -2, hydro1d's whole array, heat3d's border planes), no
+    at x_lo -2, hydro1d's whole array, heat3d's border planes, hydro2d's
+    four), no
     other kind is, and an output whose producer runs tiles further ahead
     than the call's grid reaches keeps the re-seat."""
     seen = 0
@@ -105,7 +108,7 @@ def test_seatable_reads_the_plan():
             lay = CallLayout(call, seated=True)
             if not lay.seated_outs:  # nothing to seat: the padded source
                 assert emit_source(call, seated=True) == emit_source(call)
-    assert seen == 12
+    assert seen == 16
     call = _plan("heat3d").calls[0]
     out = call.outputs[0]
     assert (out.outer_lo, out.outer_hi, call.outer_lo) == ((1,), (-1,), (-1,))

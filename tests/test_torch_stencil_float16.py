@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _inputs import hydro2d_state
 from repro_torch.core import ALL_PROGRAMS, compile_program
 from repro_torch.core.interpreters import (STENCIL_CAPABILITIES,
                                            InterpreterSpec, assemble,
@@ -85,6 +86,7 @@ def fp16_inputs(name, kplan, rng, dims=DIM):
         a = rng.standard_normal(shape).astype(np.float32)
         if name == "hydro1d" and ax.array == "rho":
             a = a * a + 1.0
+        a = hydro2d_state(name, ax.array, a)
         out[ax.array] = torch.from_numpy(a).half().float().numpy()
     return out
 
@@ -138,15 +140,18 @@ def call_gates(calls, tag: str) -> None:
         call = lay.call
         *outer, nj, ni = run.sizes
 
-        def values(padded):
-            return {o.name: assemble(call, o, p, nj, ni, tuple(outer),
-                                     lanes=True).float().cpu().numpy()
-                    for o, p in zip(call.outputs, padded)}
+        def values(outs, seated=()):
+            # a seated output (the card's K1) is its goal already
+            return {o.name: (p if k in seated else assemble(
+                        call, o, p, nj, ni, tuple(outer), lanes=True)
+                    ).float().cpu().numpy()
+                    for k, (o, p) in enumerate(zip(call.outputs, outs))}
         fn, _ = plain.build_call(call, run.sizes, torch.float16,
                                  device=args[0].device)
         fn64, _ = plain.build_call(call, run.sizes, torch.float64,
                                    device=args[0].device)
-        got, want = values(outs), values(_listed(fn(*args)))
+        got = values(outs, lay.seated_outs)
+        want = values(_listed(fn(*args)))
         exact = values(_listed(fn64(*[a.double() for a in args])))
         gate_e(got, want, exact, f"{tag}/{call.name}")
         if not call.accs:
@@ -157,7 +162,7 @@ def call_gates(calls, tag: str) -> None:
 # The sources
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
+@pytest.mark.parametrize("name", sorted(BF16_SOURCES))
 def test_bf16_sources_are_unchanged(name):
     h = hashlib.sha256()
     for call in _golden(name).calls:
@@ -365,11 +370,13 @@ def references(name, dims=DIM, seed=5):
                                 dtype=torch.float64, device="cpu").fn(**arrs)
         plain = compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
                                 dtype=torch.float16, device="cpu").fn(**arrs)
-        jax_out = ref_compile(REF_PROGRAMS[name](), backend="interp_jax",
-                              dtype=jnp.float16).fn(**arrs)
-        _REFS[key] = (arrs, _numpy(exact), _numpy(plain),
-                      {k: np.asarray(v.astype(jnp.float32))
-                       for k, v in jax_out.items()}, kplan)
+        ref = None  # the port's own programs have no interp_jax
+        if name in REF_PROGRAMS:
+            jax_out = ref_compile(REF_PROGRAMS[name](), backend="interp_jax",
+                                  dtype=jnp.float16).fn(**arrs)
+            ref = {k: np.asarray(v.astype(jnp.float32))
+                   for k, v in jax_out.items()}
+        _REFS[key] = (arrs, _numpy(exact), _numpy(plain), ref, kplan)
     return _REFS[key]
 
 
@@ -391,10 +398,12 @@ def _check(name, run, tag, dims=DIM, programs=None):
         programs = not has_accumulator(kplan)
     if programs:
         gate_e(got, plain, exact, f"{tag} vs interp_torch")
-        gate_e(got, ref, exact, f"{tag} vs interp_jax")
+        if ref is not None:
+            gate_e(got, ref, exact, f"{tag} vs interp_jax")
     if not has_accumulator(kplan):
         gate_r(got, plain, f"{tag} vs interp_torch")
-        gate_r(got, ref, f"{tag} vs interp_jax")
+        if ref is not None:
+            gate_r(got, ref, f"{tag} vs interp_jax")
 
 
 def _through(emulator, name, **opts):

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (ALL_PROGRAMS, PallasGenerated, PlanCache,
+from repro_torch.core import (ALL_PROGRAMS, PORT_ONLY, PallasGenerated,
+                              PlanCache,
                               build_unfused, clear_compile_cache,
                               compile_program, engine)
 from repro_torch.core.plan import PORT_PROGRAMS, REFERENCE_PROGRAMS
@@ -26,12 +27,14 @@ from repro_torch.scripts import plan_lint, warm_cache
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "plans"
+PORT_GOLDEN_DIR = ROOT / "tests" / "goldens" / "port_plans"
 
 
 @pytest.fixture(scope="module")
 def warmed(tmp_path_factory):
-    """One ``warm_cache --cache-dir --goldens`` run: (cache dir, golden
-    dir, exit status, output)."""
+    """One ``warm_cache --cache-dir --goldens --port-goldens`` run:
+    (cache dir, golden dir, exit status, output); the port's own
+    programs' goldens beside the golden dir, in ``port_goldens``."""
     import contextlib
     import io
 
@@ -40,7 +43,8 @@ def warmed(tmp_path_factory):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = warm_cache.main(["--cache-dir", str(cache), "--goldens",
-                              str(goldens)])
+                              str(goldens), "--port-goldens",
+                              str(root / "port_goldens")])
     return cache, goldens, rc, out.getvalue()
 
 
@@ -49,13 +53,19 @@ def test_warm_cache_goldens_equal_the_corpus(warmed):
     assert rc == 0, out
     assert {p.name for p in goldens.glob("*.json")} == \
         {p.name for p in GOLDEN_DIR.glob("*.json")} == \
-        {f"{n}.json" for n in ALL_PROGRAMS}
+        {f"{n}.json" for n in ALL_PROGRAMS if n not in PORT_ONLY}
     for path in sorted(GOLDEN_DIR.glob("*.json")):
         text = (goldens / path.name).read_text()
         assert f'"module": "{PORT_PROGRAMS}"' in text
         assert text.replace(f'"module": "{PORT_PROGRAMS}"',
                             f'"module": "{REFERENCE_PROGRAMS}"') == \
             path.read_text(), path.name
+    port = goldens.parent / "port_goldens"
+    assert {p.name for p in port.glob("*.json")} == \
+        {p.name for p in PORT_GOLDEN_DIR.glob("*.json")} == \
+        {f"{n}.json" for n in PORT_ONLY}
+    for path in sorted(PORT_GOLDEN_DIR.glob("*.json")):
+        assert (port / path.name).read_text() == path.read_text(), path.name
 
 
 def test_warmed_cache_compiles_without_analysis(warmed, monkeypatch):
