@@ -24,9 +24,9 @@
 // are cut into chunks, one block for each pair of a plane chunk and a row
 // chunk (a row tile of those planes).  A block starts its walk early so
 // that its windows hold what an in-order run would hold at its first
-// owned step: `prime` rows before its first owned row (the rows its
-// rolling windows, and its plane windows' reads behind their writes, look
-// back), and the plane prime (the planes its plane windows' reads look
+// owned step: `prime` rows before its first owned row (the longest chain
+// of its steps' reads back through its rolling windows, and its plane
+// windows' reads behind their writes), and the plane prime (the planes its plane windows' reads look
 // back behind their writes) before its first owned plane.  So a producer
 // plane window recomputes the rows of its halo inside the block
 // (overlapped tiling).  A block writes outputs and combines accumulators

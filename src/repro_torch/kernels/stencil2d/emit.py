@@ -386,11 +386,24 @@ class Launch:
     #: examples of a batched launch (``kernel.batch_launch``); 0 for a
     #: single call
     batch: int = 0
+    #: the card's SMs the launch was sized for
+    sms: int = H100_SMS
+    #: row steps all blocks walk (owned and priming), and those they own
+    rows_walked: int = 0
+    rows_owned: int = 0
 
 
 #: Global scratch the planner of a plane-window launch may ask for when
 #: its windows do not fit shared memory (bytes).
 MAX_GLOBAL_SCRATCH = 1 << 30
+
+
+def _walked(n: int, length: int, prime: int) -> int:
+    """Steps the chunks of ``length`` of a range of ``n`` walk in all,
+    each from ``prime`` steps before its first owned one
+    (``hfav::chunk_of``)."""
+    return sum(min(own + length, n) - max(own - prime, 0)
+               for own in range(0, n, length))
 
 
 def _per_sm(resident):
@@ -500,10 +513,10 @@ class CallLayout:
             back += max([0] + [lead - r.j_off for r in reads])
             pback += max([0] + [p_lead - r.p_off for r in reads])
         # row steps a chunk's block runs before its first owned row: the
-        # rows every rolling window can look back, and every plane
-        # window's reads behind their writes; planes it runs before its
-        # first owned plane
-        self.prime = sum(w.stages for w in self.roll_wins) + back
+        # longest chain of reads back through the rolling windows, and
+        # every plane window's reads behind their writes; planes it runs
+        # before its first owned plane
+        self.prime = self._row_reach() + back
         self.pprime = pback
         #: the accumulator outputs, folded on the device
         self.acc_outs = [k for k, o in enumerate(call.outputs)
@@ -520,6 +533,50 @@ class CallLayout:
             + [f"ptmp{k}" for k in self.acc_outs])
         # inputs, outputs, the global scratch, the fold's ticket
         self.n_ptrs = len(call.inputs) + len(call.outputs) + 2
+
+    def _row_reach(self) -> int:
+        """Row steps before a row step ``t`` that a block's walk must
+        start for every step to compute at ``t`` what a walk from the
+        range's start computes: the longest chain back through the
+        reads.  A step at row step ``t`` reads a rolling row input's row
+        ``t + j_off``, copied at ``t + j_off - lead``, and a rolling
+        window's, written by its producer at ``t + j_off - lead``, which
+        reaches back in turn; a local was written in the same row step.
+        Plane windows pass their producer's reach on: their reads behind
+        their writes are the ``back`` term."""
+        steps = self.call.steps
+        ins = {f"in_{i.name}": i.lead for i in self.row_ins}
+        rolling = {w.name for w in self.roll_wins}
+        writer: dict[str, int] = {}
+        for si, step in enumerate(steps):
+            if step.acc is None:
+                for targets in step.writes:
+                    for kind, tgt in targets:
+                        if kind == "local":
+                            writer[f"local:{tgt}"] = si
+                        elif kind == "buf":
+                            writer[str(tgt)] = si
+        reach = [0] * len(steps)
+        # the longest path to each step; a row-carried read of a later
+        # step's window needs another pass, at most one a step
+        for _ in range(len(steps) + 1):
+            before = list(reach)
+            for si, step in enumerate(steps):
+                for rd in step.reads:
+                    if rd.src in ins:
+                        back = ins[rd.src] - rd.j_off
+                    elif rd.src in writer:
+                        p = writer[rd.src]
+                        back = reach[p] + (steps[p].lead - rd.j_off
+                                           if rd.src in rolling else 0)
+                    else:  # a scalar, or a plane input: the ``back`` term
+                        continue
+                    reach[si] = max(reach[si], back)
+            if reach == before:
+                return max(reach, default=0)
+        raise PlanUnsupported(
+            f"call {self.call.name}: its steps' reads reach back without "
+            f"end (a window read ahead of its write)")
 
     def _plane_writer(self, key):
         """``(row lead, plane lead, j_lo, read source)`` of a plane
@@ -630,8 +687,11 @@ class CallLayout:
         """The (row-chunk, plane-chunk) lengths of a launch: the forced
         ones, else the pair whose walk takes the fewest row steps in
         waves of resident blocks, plus the partial rows one block of the
-        device fold then folds after them (then the fewest row steps in
-        all, then the most blocks), preferring windows in shared memory.
+        device fold then folds after them (then the fewest waves, then
+        the fewest row steps in all, then the most blocks), preferring
+        windows in shared memory.
+        Each count of chunks is a candidate, at its shortest length
+        (``ceil(n / m)`` for ``m`` chunks: about ``2 sqrt(n)`` lengths).
         A call without plane windows is a call of one plane."""
         def lengths(forced, n):
             if forced is not None:
@@ -639,11 +699,11 @@ class CallLayout:
                     raise ValueError(f"chunk length must be >= 1, got "
                                      f"{forced}")
                 return [int(forced)]
-            out = {n}
-            k = 1
-            while k < n:
-                out.add(k)
-                k *= 2
+            out, m = [], 1
+            while m <= n:
+                out.append(-(-n // m))
+                # the fewest chunks of a shorter length
+                m = -(-n // (out[-1] - 1)) if out[-1] > 1 else n + 1
             return sorted(out)
 
         best = None
@@ -662,8 +722,11 @@ class CallLayout:
                     continue
                 per_block = walk * planes * n_walk
                 waves = -(-nblocks // (sms * resident))
+                # a tie in row steps goes to fewer waves: each block pays
+                # its ring's fill, which a walk without priming rows (a
+                # prime of 0) does not show
                 key = (not smem, waves * per_block + self._fold_rows(nblocks),
-                       nblocks * per_block, -nblocks)
+                       waves, nblocks * per_block, -nblocks)
                 if best is None or key < best[0]:
                     best = (key, clen, plen)
         if best is None:  # nothing fits: one block per independent tile
@@ -753,6 +816,7 @@ class CallLayout:
             rows = groups + -(-parts // 16) + -(-parts // 256)
             scratch += rows * (ni + a.w_off)
         res = per_sm(threads, smem_bytes) if nblocks else 0
+        across = n_indep * math.prod(gsz[d] for d in self.walk_dims)
         return Launch(
             ints=tuple(int(vals[n]) for n in self.int_names),
             nblocks=nblocks, threads=threads, smem_bytes=smem_bytes,
@@ -760,7 +824,10 @@ class CallLayout:
             nchunks=nchunks, ni=ni, sizes=tuple(sizes), npchunks=npchunks,
             chunk_len=chunk_len, pchunk_len=pchunk_len, resident=res,
             waves=-(-nblocks // (sms * res)) if res > 0 else 0,
-            tickets=1 + groups)
+            tickets=1 + groups, sms=sms,
+            rows_walked=across * _walked(steps_j, chunk_len, self.prime)
+            * _walked(gp, pchunk_len, self.pprime),
+            rows_owned=across * steps_j * gp)
 
     def acc_of(self, k: int):
         """The accumulator of output ``k``."""

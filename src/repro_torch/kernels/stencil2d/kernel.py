@@ -59,7 +59,10 @@ The build (``nvcc`` at first use, cached by content in
 refuses CPU tensors and any dtype but float32, bf16 and float16; a failed
 build or launch raises.  The counter ``k1.launch``
 (:mod:`repro_torch.obs`) counts the launches made, ``launches`` reads it;
-``k1.seated`` counts the outputs a launch stored at their seat; each
+``k1.seated`` counts the outputs a launch stored at their seat;
+``k1.rows_walked`` and ``k1.rows_owned`` the row steps its blocks walk
+and own, ``k1.blocks`` its blocks and ``k1.block_slots`` the blocks its
+waves hold (waves x SMs x blocks an SM holds), from the launch; each
 source loaded adds 1 to ``k1.attrs`` and its registers and local (spill)
 bytes a thread to ``k1.regs`` and ``k1.local_bytes``.
 """
@@ -295,7 +298,8 @@ def batch_launch(lay: CallLayout, run: Launch, in_shapes, batch: int,
     return dataclasses.replace(
         run, ints=run.ints + tuple(strides), nblocks=nblocks,
         scratch_floats=slab * batch, tickets=run.tickets * batch,
-        batch=batch,
+        batch=batch, sms=sms, rows_walked=run.rows_walked * batch,
+        rows_owned=run.rows_owned * batch,
         waves=-(-nblocks // (sms * run.resident)) if run.resident else 0)
 
 
@@ -311,6 +315,19 @@ def launch(lib, run, tensors, *, threads: int, stream) -> None:
                            f"{lib.hfav_error_string(rc).decode()} ({rc})")
 
 
+def count_launch(lay: CallLayout, run: Launch) -> None:
+    """Add one launch of ``run`` to the counters (:mod:`repro_torch.obs`):
+    ``k1.launch``, the outputs it seats, the row steps its blocks walk and
+    own, its blocks and the blocks its waves hold."""
+    obs.count("k1.launch")
+    if lay.seated_outs:
+        obs.count("k1.seated", len(lay.seated_outs))
+    obs.count("k1.rows_walked", run.rows_walked)
+    obs.count("k1.rows_owned", run.rows_owned)
+    obs.count("k1.blocks", run.nblocks)
+    obs.count("k1.block_slots", run.waves * run.sms * run.resident)
+
+
 def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
     """Allocate ``run``'s outputs and scratch beside ``args`` and launch
     the kernel of ``lib`` on ``stream`` (which folds the accumulators);
@@ -320,9 +337,7 @@ def run_kernel(lib, lay: CallLayout, run, args, *, threads: int, stream):
     outs, tensors = launch_tensors(lay, run, args)
     if run.nblocks:
         launch(lib, run, tensors, threads=threads, stream=stream)
-        obs.count("k1.launch")
-        if lay.seated_outs:
-            obs.count("k1.seated", len(lay.seated_outs))
+        count_launch(lay, run)
     else:
         for k in lay.acc_outs:
             outs[k].fill_(lay.acc_of(k).init)

@@ -66,38 +66,40 @@ BLOCK_STRIDE = 7
 
 #: sha256 (first 16 hex digits) of each golden plan's grid-call sources
 #: in each dtype, concatenated in call order, as the emitter wrote them
-#: before it learned batches: the single-call kernels are unchanged.
+#: before it learned batches (but for the row prime each writes into
+#: ``chunk_of``, derived from the plan's reads): the single-call kernels
+#: are unchanged.
 SINGLE_SOURCES = {
     "float32": {
-        "advect4d_halo": "7ce7c25898bc3fae", "cosmo": "14bf57c5a95cfd72",
-        "energy3d": "176d2c9d52f2f3d9", "heat3d": "3e8e29523f5090df",
+        "advect4d_halo": "7ce7c25898bc3fae", "cosmo": "6b8c3919fc989f90",
+        "energy3d": "4fe5d08bbb96864c", "heat3d": "3e8e29523f5090df",
         "heat3d_residual_norm": "568941a62af936da",
-        "heat3d_stage": "157414aaf88c1788", "hydro1d": "300a0c96c4b22bb8",
-        "laplace5": "32881c2ac0e52411", "laplace_pair": "6768eae96ef78c4b",
-        "normalization": "44fa4872744322ed",
-        "plane_sum": "f4fd8638b7cdc7c3", "pyramid4d": "d026e536f738bad4",
-        "row_sum": "29e2f22b4ec6b7df", "smooth_norm": "5be490f18faf7f08",
-        "subset_sum": "1cc9b91cd62b70b4"},
+        "heat3d_stage": "157414aaf88c1788", "hydro1d": "cbde5fd94ab9081d",
+        "laplace5": "aba0b8d72a16887f", "laplace_pair": "00ee6bc5ac04ec2a",
+        "normalization": "cb683d8058d17edc",
+        "plane_sum": "4bb673ed3b9a17d0", "pyramid4d": "cc3c970de9888473",
+        "row_sum": "f15f127c6de0e72a", "smooth_norm": "09ebe4017c8136af",
+        "subset_sum": "64aa52bd10b98786"},
     "bfloat16": {
-        "advect4d_halo": "f5a24bd69129e665", "cosmo": "dee3b31b4833963a",
-        "energy3d": "4ffcfe875690b0be", "heat3d": "c328b211a5d0e059",
+        "advect4d_halo": "f5a24bd69129e665", "cosmo": "c5bfe858a28ebf1f",
+        "energy3d": "4ca7d2b85d41aa5d", "heat3d": "c328b211a5d0e059",
         "heat3d_residual_norm": "cd5ee90b0f95507a",
-        "heat3d_stage": "5820e93d5ad0dac2", "hydro1d": "746368a2fca47f3c",
-        "laplace5": "e5ceb7dff0c3e56f", "laplace_pair": "c56c8e814aa3ef15",
-        "normalization": "91590c18b4c1f55e",
-        "plane_sum": "a239de01748e3349", "pyramid4d": "cdbf05f226619628",
-        "row_sum": "c3bae70d9553d892", "smooth_norm": "273f54d38cc681e9",
-        "subset_sum": "86adaea87238038e"},
+        "heat3d_stage": "5820e93d5ad0dac2", "hydro1d": "62f7765e1fc99336",
+        "laplace5": "0575ca5f04a61e10", "laplace_pair": "3db66cdc01f6d0c6",
+        "normalization": "44f1c13ca358d3e3",
+        "plane_sum": "df66c2695b543c98", "pyramid4d": "760327eb3d16a679",
+        "row_sum": "32da988ec0e7c18f", "smooth_norm": "6d13f409b45efb93",
+        "subset_sum": "903058bcf19449ec"},
     "float16": {
-        "advect4d_halo": "7288bb43c9c8ef1a", "cosmo": "a0ea7162e4e6b63f",
-        "energy3d": "445c274562487951", "heat3d": "fe0abc3ed9a1b60e",
+        "advect4d_halo": "7288bb43c9c8ef1a", "cosmo": "94a1d6addc51c16f",
+        "energy3d": "29fe4d2770460222", "heat3d": "fe0abc3ed9a1b60e",
         "heat3d_residual_norm": "029ac0480abaa086",
-        "heat3d_stage": "34f8323e3e671c27", "hydro1d": "da67c524ef267f51",
-        "laplace5": "d643ce48746cf078", "laplace_pair": "7c30005f1cd35737",
-        "normalization": "d6e40910488a2822",
-        "plane_sum": "2ae2669670f0b9cf", "pyramid4d": "42d73a4324a6bb9e",
-        "row_sum": "c28e2fdd05a389ae", "smooth_norm": "ce779433284667a7",
-        "subset_sum": "8e498c0bd8ca0968"},
+        "heat3d_stage": "34f8323e3e671c27", "hydro1d": "b5609f92e064482c",
+        "laplace5": "6bb546b24a20e980", "laplace_pair": "11556491bef9908a",
+        "normalization": "ebdf5e1820d7935d",
+        "plane_sum": "e1df323b450ee052", "pyramid4d": "221fa92b14fe9cee",
+        "row_sum": "cc09a04a94540771", "smooth_norm": "93ae2b074ce9bb07",
+        "subset_sum": "a82a5b1187f7cddf"},
 }
 
 

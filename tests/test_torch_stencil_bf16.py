@@ -71,23 +71,25 @@ GATE_E_FACTOR, GATE_E_FLOOR = 1.25, 2.0 ** -8
 
 #: sha256 (first 16 hex digits) of the float32 sources of each golden
 #: plan's grid calls, concatenated in call order, as the emitter wrote
-#: them before it learned bf16: the float32 kernels are unchanged.
+#: them before it learned bf16 (but for the row prime each writes into
+#: ``chunk_of``, derived from the plan's reads): the float32 kernels are
+#: unchanged.
 FLOAT32_SOURCES = {
     "advect4d_halo": "7ce7c25898bc3fae",
-    "cosmo": "14bf57c5a95cfd72",
-    "energy3d": "176d2c9d52f2f3d9",
+    "cosmo": "6b8c3919fc989f90",
+    "energy3d": "4fe5d08bbb96864c",
     "heat3d": "3e8e29523f5090df",
     "heat3d_residual_norm": "568941a62af936da",
     "heat3d_stage": "157414aaf88c1788",
-    "hydro1d": "300a0c96c4b22bb8",
-    "laplace5": "32881c2ac0e52411",
-    "laplace_pair": "6768eae96ef78c4b",
-    "normalization": "44fa4872744322ed",
-    "plane_sum": "f4fd8638b7cdc7c3",
-    "pyramid4d": "d026e536f738bad4",
-    "row_sum": "29e2f22b4ec6b7df",
-    "smooth_norm": "5be490f18faf7f08",
-    "subset_sum": "1cc9b91cd62b70b4",
+    "hydro1d": "cbde5fd94ab9081d",
+    "laplace5": "aba0b8d72a16887f",
+    "laplace_pair": "00ee6bc5ac04ec2a",
+    "normalization": "cb683d8058d17edc",
+    "plane_sum": "4bb673ed3b9a17d0",
+    "pyramid4d": "cc3c970de9888473",
+    "row_sum": "f15f127c6de0e72a",
+    "smooth_norm": "09ebe4017c8136af",
+    "subset_sum": "64aa52bd10b98786",
 }
 
 

@@ -54,23 +54,25 @@ GATE_E_FACTOR, GATE_E_FLOOR = 1.25, 2.0 ** -11
 
 #: sha256 (first 16 hex digits) of the bf16 sources of each golden
 #: plan's grid calls, concatenated in call order, as the emitter wrote
-#: them before it learned float16: the bf16 kernels are unchanged.
+#: them before it learned float16 (but for the row prime each writes into
+#: ``chunk_of``, derived from the plan's reads): the bf16 kernels are
+#: unchanged.
 BF16_SOURCES = {
     "advect4d_halo": "f5a24bd69129e665",
-    "cosmo": "dee3b31b4833963a",
-    "energy3d": "4ffcfe875690b0be",
+    "cosmo": "c5bfe858a28ebf1f",
+    "energy3d": "4ca7d2b85d41aa5d",
     "heat3d": "c328b211a5d0e059",
     "heat3d_residual_norm": "cd5ee90b0f95507a",
     "heat3d_stage": "5820e93d5ad0dac2",
-    "hydro1d": "746368a2fca47f3c",
-    "laplace5": "e5ceb7dff0c3e56f",
-    "laplace_pair": "c56c8e814aa3ef15",
-    "normalization": "91590c18b4c1f55e",
-    "plane_sum": "a239de01748e3349",
-    "pyramid4d": "cdbf05f226619628",
-    "row_sum": "c3bae70d9553d892",
-    "smooth_norm": "273f54d38cc681e9",
-    "subset_sum": "86adaea87238038e",
+    "hydro1d": "62f7765e1fc99336",
+    "laplace5": "0575ca5f04a61e10",
+    "laplace_pair": "3db66cdc01f6d0c6",
+    "normalization": "44f1c13ca358d3e3",
+    "plane_sum": "df66c2695b543c98",
+    "pyramid4d": "760327eb3d16a679",
+    "row_sum": "32da988ec0e7c18f",
+    "smooth_norm": "6d13f409b45efb93",
+    "subset_sum": "903058bcf19449ec",
 }
 
 
