@@ -8,11 +8,18 @@ of (source, the headers it includes, ``nvcc --version``, the flags) in
 ``build/repro_torch/`` at the repository root.  A failed build raises
 with the compiler's log.  The counters ``kernel.nvcc`` and ``kernel.load``
 (:mod:`repro_torch.obs`) count the libraries compiled and loaded.
+
+The same cache holds the host build of a source (:func:`_host_build`, the
+tests' emulation): ``g++ -DHFAV_EMULATE``, where
+``stencil2d/csrc/emulate.h`` stands in for the card, so a kernel runs on
+the CPU, one block after another.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -28,10 +35,17 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: The host build's flags (a library's add ``-shared -fPIC``).
+HOST_FLAGS = ("-x", "c++", "-std=c++20", "-O1", "-pthread", "-DHFAV_EMULATE")
+#: The header every host build includes, which enters its cache key.
+EMULATE_H = pathlib.Path(__file__).resolve().parent / "stencil2d" / "csrc" \
+    / "emulate.h"
+#: Host compilers one process runs at once.
+HOST_PARALLEL = 4
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-_NVCC_VERSION: list[str] = []
+_VERSIONS: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,21 +73,28 @@ def nvcc_path() -> str:
                        "nvcc at first use")
 
 
+def _version(compiler: str) -> str:
+    if compiler not in _VERSIONS:
+        _VERSIONS[compiler] = subprocess.run(
+            [compiler, "--version"], check=True, capture_output=True,
+            text=True).stdout
+    return _VERSIONS[compiler]
+
+
 def nvcc_version() -> str:
-    if not _NVCC_VERSION:
-        _NVCC_VERSION.append(subprocess.run(
-            [nvcc_path(), "--version"], check=True, capture_output=True,
-            text=True).stdout)
-    return _NVCC_VERSION[0]
+    return _version(nvcc_path())
 
 
-def digest(job: Job) -> str:
+def _digest(job: Job, *parts: str) -> str:
     h = hashlib.sha256()
-    for part in (job.source, *(p.read_text() for p in job.headers),
-                 nvcc_version(), " ".join(NVCC_FLAGS)):
+    for part in (job.source, *(p.read_text() for p in job.headers), *parts):
         h.update(part.encode())
         h.update(b"\0")
     return h.hexdigest()[:32]
+
+
+def digest(job: Job) -> str:
+    return _digest(job, nvcc_version(), " ".join(NVCC_FLAGS))
 
 
 def library_path(job: Job) -> pathlib.Path:
@@ -119,32 +140,33 @@ def _tmp(key: str, suffix: str) -> pathlib.Path:
     return BUILD_DIR / f"{key}.{os.getpid()}.tmp{suffix}"
 
 
-def _start_build(job: Job, key: str):
-    """Start ``nvcc`` on ``job`` unless its library is built already;
-    returns the compiler process, or None."""
-    if key in _LIBS or (BUILD_DIR / f"{key}.so").exists():
+def _start_build(job: Job, key: str, argv=None, suffix: str = ".so"):
+    """Start the compiler (``argv``: by default ``nvcc`` and
+    :data:`NVCC_FLAGS`) on ``job`` unless its output (``{key}{suffix}``)
+    is built already; returns the compiler process, or None."""
+    if key in _LIBS or (BUILD_DIR / f"{key}{suffix}").exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = _tmp(key, ".cu")
     cu.write_text(job.source)
     return subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, f"-I{job.include}", "-o",
-         str(_tmp(key, ".so")), str(cu)],
+        [*(argv or (nvcc_path(), *NVCC_FLAGS)), f"-I{job.include}", "-o",
+         str(_tmp(key, suffix)), str(cu)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _finish_compile(key: str, proc) -> None:
-    """Wait for ``proc`` (if any) and move its source and library to
-    their shared names (``{key}.cu``, ``{key}.so``), each by one atomic
-    rename; raises with the compiler's log when it failed."""
+def _finish_compile(key: str, proc, suffix: str = ".so") -> None:
+    """Wait for ``proc`` (if any) and move its source and output to
+    their shared names (``{key}.cu``, ``{key}{suffix}``), each by one
+    atomic rename; raises with the compiler's log when it failed."""
     if proc is None:
         return
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {_tmp(key, '.cu')}:\n"
-                           f"{log}")
+        raise RuntimeError(f"{pathlib.Path(proc.args[0]).name} failed "
+                           f"building {_tmp(key, '.cu')}:\n{log}")
     os.replace(_tmp(key, ".cu"), BUILD_DIR / f"{key}.cu")
-    os.replace(_tmp(key, ".so"), BUILD_DIR / f"{key}.so")
+    os.replace(_tmp(key, suffix), BUILD_DIR / f"{key}{suffix}")
 
 
 def _finish_build(job: Job, key: str, proc) -> ctypes.CDLL:
@@ -176,3 +198,47 @@ def build(jobs: Sequence[Job]) -> tuple[list[ctypes.CDLL], int]:
     compiled = sum(p is not None for p in procs.values())
     obs.count("kernel.nvcc", compiled)
     return [libs[k] for k in keys], compiled
+
+
+@contextlib.contextmanager
+def _held(key: str):
+    """An exclusive lock of ``key``'s lock file while the context lasts:
+    one process at a time builds a key."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{key}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
+def _host_build(jobs: Sequence[Job], flags: Sequence[str] = (),
+                program: bool = False) -> list:
+    """The host build of every job (``g++`` with :data:`HOST_FLAGS` and
+    ``flags``): a shared library, loaded and bound, or with ``program``
+    an executable, whose path is returned.  Cached as :func:`build`
+    caches ``nvcc``'s, the key holding :data:`EMULATE_H` too; each source
+    compiles once across processes (a compile holds its key's lock, the
+    locks taken in key order), :data:`HOST_PARALLEL` at a time."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host build needs a host C++ "
+                           "compiler")
+    argv = (gxx, *HOST_FLAGS,
+            *(flags if program else ("-shared", "-fPIC", *flags)))
+    suffix = ".exe" if program else ".so"
+    keys = [_digest(j, EMULATE_H.read_text(), _version(gxx),
+                    " ".join(argv[1:])) for j in jobs]
+    of = dict(zip(keys, jobs))
+    todo = sorted(k for k in of if not (BUILD_DIR / f"{k}{suffix}").exists())
+    with _LOCK:
+        for i in range(0, len(todo), HOST_PARALLEL):
+            with contextlib.ExitStack() as held:
+                procs = []
+                for key in todo[i:i + HOST_PARALLEL]:
+                    held.enter_context(_held(key))
+                    procs.append((key, _start_build(of[key], key, argv,
+                                                    suffix)))
+                for key, proc in procs:
+                    _finish_compile(key, proc, suffix)
+        if program:
+            return [BUILD_DIR / f"{k}{suffix}" for k in keys]
+        return [_finish_build(of[k], k, None) for k in keys]

@@ -14,6 +14,7 @@ import subprocess
 import numpy as np
 import torch
 
+from ...cards import HBM_RATE, rate
 from . import kernel as k1
 
 #: (program, sizes of its loop dims outermost first): the largest sizes
@@ -35,9 +36,6 @@ PLANE_WINDOW_PATH = (("heat3d", {"k": 6, "j": 32, "i": 256}),
                      ("advect4d_halo", {"l": 4, "k": 16, "j": 512,
                                         "i": 512}))
 RUNS = 20
-#: Device-memory rates (bytes/s) by card name, from NVIDIA's data sheets.
-HBM_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
-            ("H100", 3.35e12))
 
 
 def smi_line() -> str:
@@ -49,10 +47,8 @@ def smi_line() -> str:
 
 
 def hbm_rate(name: str) -> float:
-    for key, rate in HBM_RATE:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate known for {name!r}")
+    """The card's device-memory rate (bytes/s)."""
+    return rate(HBM_RATE, name)
 
 
 def make_inputs(name: str, kplan, dims: dict, seed: int, device,

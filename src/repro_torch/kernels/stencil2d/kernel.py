@@ -172,10 +172,12 @@ def build_library(call: CallPlan, dtype=torch.float32, batched: bool = False,
     return entry[1 + batched]
 
 
-def _check_tensor(t, what: str, shape, device, dtype) -> None:
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"{what}: the CUDA stencil kernel takes CUDA "
-                         f"tensors, got {getattr(t, 'device', type(t))}")
+def _check_tensor(t, what: str, shape, device, dtype,
+                  kind: str = "cuda") -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != kind:
+        raise ValueError(f"{what}: the CUDA stencil kernel takes "
+                         f"{kind.upper()} tensors, got "
+                         f"{getattr(t, 'device', type(t))}")
     if t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -364,7 +366,8 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     :func:`~repro_torch.core.interpreters.seatable` admits comes back at
     its seat, in its goal's shape ``(*outer_sizes, Nj, Ni)``, as
     ``assemble`` would make it of the padded one."""
-    return _build(call, sizes, dtype, chunk, plane_chunk, False, seated)
+    return _build(call, sizes, dtype, chunk=chunk, plane_chunk=plane_chunk,
+                  seated=seated)
 
 
 def build_batched(call: CallPlan, sizes: tuple[int, ...], dtype, *,
@@ -378,11 +381,42 @@ def build_batched(call: CallPlan, sizes: tuple[int, ...], dtype, *,
     the single kernel's residency or forced as in :func:`build_call`),
     so each example's bits equal its single call's.  Both kernels are
     built at the first call; a failed build or launch raises."""
-    return _build(call, sizes, dtype, chunk, plane_chunk, True, seated)
+    return _build(call, sizes, dtype, chunk=chunk, plane_chunk=plane_chunk,
+                  seated=seated, batched=True)
 
 
-def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool,
-           seated: bool):
+class _Card:
+    """The facts of the device a K1 call runs on, the only ones
+    :func:`_build` reads: the tensors' device type, how a kernel's library
+    is loaded, the SMs, a block's threads, the device's context and the
+    stream.  These are the card's; the tests' host emulation
+    (``tests/_emulate.py``) substitutes its own."""
+
+    kind = "cuda"
+
+    def library(self, call: CallPlan, dtype, batched: bool, seated: bool):
+        return build_library(call, dtype, batched, seated)
+
+    def sms(self, dev) -> int:
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def threads(self, run: Launch) -> int:
+        return run.threads
+
+    def device(self, dev):
+        return torch.cuda.device(dev)
+
+    def stream(self, dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
+_CARD = _Card()
+
+
+def _build(call: CallPlan, sizes, dtype, *, device=None, chunk=None,
+           plane_chunk=None, seated=False, batched=False, card=_CARD):
+    """:func:`build_call`, or with ``batched`` :func:`build_batched`, on
+    the device ``card`` describes."""
     dtype_name(dtype)  # raises PlanUnsupported for another dtype
     if len(sizes) != call.n_outer + 2:
         raise ValueError(f"call {call.name} has n_outer={call.n_outer} but "
@@ -403,28 +437,29 @@ def _build(call: CallPlan, sizes, dtype, chunk, plane_chunk, batched: bool,
         if batched:
             lead = tuple(args[0].shape[:1]) if dev is not None else (0,)
         for i, t, shape in zip(call.inputs, args, in_shapes):
-            _check_tensor(t, f"input {i.name!r}", lead + shape, dev, dtype)
+            _check_tensor(t, f"input {i.name!r}", lead + shape, dev, dtype,
+                          card.kind)
         if lead and lead[0] < 1:
             raise ValueError(f"call {call.name}: a batch needs a leading "
                              f"batch axis of width >= 1")
-        with torch.cuda.device(dev), obs.span("k1.launch"):
+        with card.device(dev), obs.span("k1.launch"):
             if not built:
                 with obs.span("kernel.build"):
-                    lib = build_library(call, dtype, batched, seated)
-                    sms = torch.cuda.get_device_properties(
-                        dev).multi_processor_count
+                    lib = card.library(call, dtype, batched, seated)
+                    sms = card.sms(dev)
                     # a batched launch is the single call's, once an
                     # example
-                    resident = occupancy(build_library(call, dtype,
-                                                       seated=seated))
+                    resident = occupancy(card.library(call, dtype, False,
+                                                      seated))
                     built.append((lib, lay.concretize(
                         tuple(sizes), resident, chunk, sms, plane_chunk),
                         sms))
             lib, run, sms = built[0]
             if batched:
                 run = batch_launch(lay, run, in_shapes, lead[0], sms)
-            return run_kernel(lib, lay, run, args, threads=run.threads,
-                              stream=torch.cuda.current_stream(dev).cuda_stream)
+            return run_kernel(lib, lay, run, args,
+                              threads=card.threads(run),
+                              stream=card.stream(dev))
 
     return fn, steps_j
 

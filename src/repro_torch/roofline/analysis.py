@@ -1,7 +1,8 @@
 """Roofline terms of a dry-run cell (the port of
 ``repro.roofline.analysis``).
 
-Constants are the NVIDIA H100 SXM5 data sheet's:
+Constants are the NVIDIA H100 SXM5 data sheet's (its rows of
+:mod:`repro_torch.cards`, but for NVLink's):
 
 * ``PEAK_FLOPS`` 989e12 FLOP/s: dense bf16 on the tensor cores, per GPU
   (the sheet's 1979 TFLOP/s is with 2:4 sparsity);
@@ -36,8 +37,10 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
-PEAK_FLOPS = 989e12  # dense bf16 FLOP/s per GPU (H100 SXM5)
-HBM_BW = 3.35e12  # bytes/s per GPU (HBM3)
+from ..cards import BF16_PEAK, H100_SXM, HBM_RATE, rate
+
+PEAK_FLOPS = rate(BF16_PEAK, H100_SXM)  # dense bf16 FLOP/s per GPU
+HBM_BW = rate(HBM_RATE, H100_SXM)  # bytes/s per GPU (HBM3)
 NVLINK_BW = 450e9  # bytes/s per GPU per direction (NVLink 4, 18 links)
 
 _COLLECTIVES = (

@@ -2,10 +2,10 @@
 
 The work and the bytes each attention or SSD call must do, counted from
 its inputs (each input read once, each output written once; for decode
-only the valid part of the caches), the card's peak rates by name, the
-device's share of a step by ``torch.profiler``, and :func:`checked`,
-which holds every call of a kernel wrapper against its plain version
-while a model runs.  ``chip_smoke.py`` uses them; timing itself uses the
+only the valid part of the caches), the card's peak rates by name
+(:mod:`repro_torch.cards`), the device's share of a step by
+``torch.profiler``, and :func:`checked`, which holds every call of a
+kernel wrapper against its plain version while a model runs.  ``chip_smoke.py`` uses them; timing itself uses the
 CUDA-event helpers of :mod:`repro_torch.kernels.stencil2d.bench`.
 """
 from __future__ import annotations
@@ -16,43 +16,22 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-#: Dense bf16 tensor-core peaks (FLOP/s) by card name, from NVIDIA's
-#: data sheets (the H100 SXM figure assumes its 700 W limit).
-BF16_PEAK = (("H200", 989e12), ("H100 NVL", 835e12), ("H100 PCIe", 756e12),
-             ("H100", 989e12))
-
-
-#: float32 peaks outside the tensor cores (FLOP/s), from the same sheets.
-F32_PEAK = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12),
-            ("H100", 67e12))
-
-
-#: Dense TF32 tensor-core peaks (FLOP/s), from the same sheets (half the
-#: sparse figures they print).
-TF32_PEAK = (("H200", 495e12), ("H100 NVL", 418e12), ("H100 PCIe", 378e12),
-             ("H100", 495e12))
-
-
-def _peak(table, name: str) -> float:
-    for key, rate in table:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no peak rate known for {name!r}")
+from ..cards import BF16_PEAK, F32_PEAK, TF32_PEAK, rate
 
 
 def bf16_peak(name: str) -> float:
     """The card's dense bf16 tensor-core rate."""
-    return _peak(BF16_PEAK, name)
+    return rate(BF16_PEAK, name)
 
 
 def f32_peak(name: str) -> float:
     """The card's float32 rate outside the tensor cores."""
-    return _peak(F32_PEAK, name)
+    return rate(F32_PEAK, name)
 
 
 def tf32_peak(name: str) -> float:
     """The card's dense TF32 tensor-core rate."""
-    return _peak(TF32_PEAK, name)
+    return rate(TF32_PEAK, name)
 
 
 def attention_pairs(Sq: int, Skv: int, *, causal: bool, window, q_offset: int,

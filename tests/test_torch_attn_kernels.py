@@ -28,14 +28,13 @@ a relative L2 of ``2e-4`` (a single bf16 P gives ~1.9e-3 there) and
 from __future__ import annotations
 
 import ctypes
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from _emulate import (EMU_ATTN_CASES, PRIMS_SRC, _attn_inputs, _frag, _np,
+                      _torch, host_build, kernel_library)
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.kernels.flash_attention import kernel as k2
 from repro_torch.kernels.flash_decode import kernel as k3
@@ -47,117 +46,21 @@ TOL = dict(atol=2e-4, rtol=1e-3)
 B, S0, STEPS, MAX_SEQ = 4, 12, 8, 64  # the shape of examples/serve_lm.py
 
 
-def _np(x):
-    return x.detach().float().cpu().numpy()
-
-
-def _torch(a, dtype, device="cpu"):
-    return torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
-
-
-def _attn_inputs(shape_q, shape_kv, seed):
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal(shape_q).astype(np.float32),
-            rng.standard_normal(shape_kv).astype(np.float32),
-            rng.standard_normal(shape_kv).astype(np.float32))
-
-
 # ---------------------------------------------------------------------------
 # The CUDA sources compiled as host C++
 # ---------------------------------------------------------------------------
 
-_EMU: dict = {}
-
-
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def emulated():
     """The two kernels' libraries built by ``g++ -DHFAV_EMULATE``."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    out = tmp_path_factory.mktemp("emulated_attention")
-    libs = {}
-    for name, mod in (("fa", k2), ("fd", k3)):
-        so = out / f"{name}.so"
-        res = subprocess.run(
-            ["g++", "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC",
-             "-pthread", "-DHFAV_EMULATE", "-o", str(so), str(mod.SOURCE)],
-            capture_output=True, text=True)
-        assert res.returncode == 0, res.stderr[-4000:]
-        lib = ctypes.CDLL(str(so))
-        mod._bind(lib)
-        libs[name] = lib
-    return libs
+    return {"fa": kernel_library(k2), "fd": kernel_library(k3)}
 
 
-EMULATE_H = pathlib.Path(k2.__file__).resolve().parents[1] / "stencil2d" \
-    / "csrc" / "emulate.h"
-# Two warps, each loading three 16 x 16 bf16 matrices of its own from
-# shared memory: A by ldmatrix (A fragments), Bt (B stored n-major, as K
-# rows are) by ldmatrix, V (k-major, as V rows are) by ldmatrix.trans;
-# then A Bt^T and A V by mma (two n8 tiles each), and a shuffle.
-PRIMS_SRC = r"""
-#include "emulate.h"
-struct Args {
-  const unsigned short* m;  // (2 warps, 3 matrices, 16, 16) bf16
-  unsigned* raw;            // (2, 32 lanes, 3, 4) ldmatrix registers
-  float* d;                 // (2, 2 products, 16, 16)
-  float* shfl;              // (2, 32, 5)
-};
-void prims(const Args p) {
-  const unsigned w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  unsigned char* const sm = reinterpret_cast<unsigned char*>(hfav_smem) +
-                            w * 3 * 512;
-  if (lane == 0) std::memcpy(sm, p.m + w * 3 * 256, 3 * 512);
-  __syncwarp();
-  const unsigned r = (lane & 7) + 8 * ((lane >> 3) & 1), h = lane >> 4;
-  unsigned regs[3][4];
-  hfav_ldmatrix_x4(regs[0], sm + 32 * r + 16 * h, false);
-  hfav_ldmatrix_x4(regs[1],
-                   sm + 512 + 32 * (8 * h + (lane & 7)) + 16 * ((lane >> 3) & 1),
-                   false);
-  hfav_ldmatrix_x4(regs[2], sm + 1024 + 32 * r + 16 * h, true);
-  for (int m = 0; m < 3; ++m)
-    for (int i = 0; i < 4; ++i)
-      p.raw[((w * 32 + lane) * 3 + m) * 4 + i] = regs[m][i];
-  const unsigned g = lane / 4, t = lane % 4;
-  for (int prod = 0; prod < 2; ++prod)
-    for (int n = 0; n < 2; ++n) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      hfav_mma_bf16(d, regs[0], regs[1 + prod] + 2 * n, d);
-      for (int e = 0; e < 4; ++e)
-        p.d[((w * 2 + prod) * 16 + g + 8 * (e / 2)) * 16 + 8 * n + 2 * t +
-            e % 2] = d[e];
-    }
-  const float x = lane * 1.5f + w;
-  for (int k = 0; k < 5; ++k)
-    p.shfl[(w * 32 + lane) * 5 + k] = __shfl_xor_sync(~0u, x, 1 << k);
-}
-extern "C" int run_prims(const Args* p) {
-  return emulate_launch(prims, *p, 1, 64, 0);
-}
-"""
-
-
-def _frag(m8, lane):
-    """Register ``lane`` of ldmatrix (not transposed) on the 8 x 8 matrix
-    ``m8``: row lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1."""
-    return m8[lane // 4, 2 * (lane % 4):2 * (lane % 4) + 2]
-
-
-def test_emulated_warp_collectives_match_numpy(tmp_path):
+def test_emulated_warp_collectives_match_numpy():
     """ldmatrix x4 (plain and .trans), mma.sync m16n8k16 bf16 and
     __shfl_xor_sync of ``emulate.h`` against numpy's transpose and matmul
     (the PTX ISA's fragment layouts)."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    src, so = tmp_path / "prims.cc", tmp_path / "prims.so"
-    src.write_text(PRIMS_SRC)
-    res = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         "-DHFAV_EMULATE", f"-I{EMULATE_H.parent}", "-o", str(so), str(src)],
-        capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
+    lib = host_build(PRIMS_SRC)
     rng = np.random.default_rng(12)
     mats = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(
         np.float32)).to(torch.bfloat16)
@@ -238,21 +141,12 @@ def _tf32(v):
     return np.ldexp(r, e - 11).astype(np.float32)
 
 
-def test_emulated_tf32_mma_matches_numpy(tmp_path):
+def test_emulated_tf32_mma_matches_numpy():
     """``hfav_tf32`` (cvt.rna.tf32.f32) and mma.sync m16n8k8 tf32 of
     ``emulate.h``: rounding against numpy's, ties away from zero, and
     the fragment layout (A rows g, g + 8 at columns t, t + 4; B rows t,
     t + 4 of column g) against numpy's matmul of the rounded operands."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    src, so = tmp_path / "tf32.cc", tmp_path / "tf32.so"
-    src.write_text(TF32_SRC)
-    res = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-         "-DHFAV_EMULATE", f"-I{EMULATE_H.parent}", "-o", str(so), str(src)],
-        capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
+    lib = host_build(TF32_SRC)
     rng = np.random.default_rng(13)
     a = rng.standard_normal((16, 8)).astype(np.float32)
     b = rng.standard_normal((8, 8)).astype(np.float32)
@@ -280,24 +174,6 @@ def test_emulated_tf32_mma_matches_numpy(tmp_path):
     assert np.abs(a.astype(np.float64) @ b - want).max() > 1e-4
 
 
-# B, Sq, Skv, H, KVH, D, causal, window, q_offset; each in float32 (the
-# scalar kernel) and bf16 (the tensor-core kernel)
-EMU_ATTN_CASES = [
-    (1, 70, 70, 2, 1, 32, True, None, 0),       # ragged S
-    (1, 64, 100, 2, 2, 16, False, None, 36),    # Sq < Skv
-    (2, 130, 130, 2, 1, 64, True, 20, 0),       # masked tiles
-    (1, 40, 72, 2, 1, 80, True, None, 32),
-    (1, 65, 65, 2, 2, 128, False, 30, 0),
-    (1, 77, 141, 2, 1, 16, True, None, 64),     # ragged Sq and Skv
-    (1, 93, 150, 2, 2, 128, False, None, 57),   # ragged Sq and Skv
-    # the moe, encdec and vlm paths' shapes: one query row (decode cross
-    # attention) over a ragged Skv, ragged Sq < Skv cross attention at
-    # D = 64, GQA group 3 (granite) and group 8 at D = 128 (qwen2-vl)
-    (2, 1, 77, 2, 2, 64, False, None, 76),
-    (1, 45, 141, 2, 2, 64, False, None, 96),
-    (1, 70, 70, 6, 2, 64, True, None, 0),
-    (1, 65, 65, 8, 1, 128, True, None, 0),
-]
 DTYPES = ["float32", "bfloat16"]
 
 

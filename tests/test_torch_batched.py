@@ -10,10 +10,11 @@ Legs:
   dtypes (hashes pinned as the emitter wrote them before it learned
   batches), and a batched source differs from its single one only where
   it finds its example;
-* the batched kernels compiled as host C++ (``-DHFAV_EMULATE``, outputs
-  and scratch starting as NaN, the batched launch's blocks run in an
-  order that interleaves the examples, so an example whose fold does not
-  wait for all of its own blocks shows) and held bit for bit against
+* the batched kernels compiled as host C++ (``-DHFAV_EMULATE``, the
+  emulated ``"cuda"`` interpreter of ``tests/_emulate.py``: outputs
+  seated as on the card, outputs and scratch starting as NaN, the batched
+  launch's blocks run in an order that interleaves the examples, so an
+  example whose fold does not wait for all of its own blocks shows) and held bit for bit against
   per-example emulated single calls: every program, B = 1 and 3, row
   chunks of 1, 2 and the default, in float32, bf16 and float16; plane
   chunks and row tiles; windows in global scratch; one launch per grid
@@ -25,125 +26,31 @@ Legs:
 plus the on-card case, which needs a CUDA device and ``nvcc`` and skips
 without one.
 """
-import concurrent.futures
-import contextlib
-import ctypes
 import hashlib
-import json
 import math
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from _goldens import golden_path
-from _inputs import hydro2d_state
+from _emulate import ODD_DIM as DIM
+from _emulate import (SOURCES, _dname, _golden, _plan, emulated, grid_calls,
+                      inputs, prebuild, same_bits)
 from repro_torch.core import (ALL_PROGRAMS, PORT_ONLY, clear_compile_cache,
-                              compile_batched, compile_program,
-                              from_reference_dict)
-from repro_torch.core.interpreters import (STENCIL_CAPABILITIES,
-                                           InterpreterSpec, execute_plan,
-                                           register_interpreter,
-                                           unregister_interpreter)
+                              compile_batched, compile_program)
+from repro_torch.core.interpreters import execute_plan
 from repro_torch.kernels.stencil2d import kernel as k1
 from repro_torch.kernels.stencil2d.emit import CallLayout, emit_source
 
-EMULATE_H = k1.CSRC / "emulate.h"
-#: Odd Ni, as in the bf16 tests: 2-byte rows start in turn on and
-#: between 4-byte words.
-DIM = {"i": 37, "j": 9, "k": 4, "l": 3}
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: The reference's programs (its ``compile_batched`` lacks the port's own).
 REF_NAMES = sorted(set(ALL_PROGRAMS) - set(PORT_ONLY))
 PLANE_WINDOW_PROGRAMS = ("heat3d", "heat3d_stage", "heat3d_residual_norm",
                          "advect4d_halo")
-#: The stride of the emulated batched launch's block order: block b of n
-#: runs (b * stride mod n)-th, which interleaves the examples.
-BLOCK_STRIDE = 7
-
-#: sha256 (first 16 hex digits) of each golden plan's grid-call sources
-#: in each dtype, concatenated in call order, as the emitter wrote them
-#: before it learned batches (but for the row prime each writes into
-#: ``chunk_of``, derived from the plan's reads): the single-call kernels
-#: are unchanged.
-SINGLE_SOURCES = {
-    "float32": {
-        "advect4d_halo": "7ce7c25898bc3fae", "cosmo": "6b8c3919fc989f90",
-        "energy3d": "4fe5d08bbb96864c", "heat3d": "3e8e29523f5090df",
-        "heat3d_residual_norm": "568941a62af936da",
-        "heat3d_stage": "157414aaf88c1788", "hydro1d": "cbde5fd94ab9081d",
-        "laplace5": "aba0b8d72a16887f", "laplace_pair": "00ee6bc5ac04ec2a",
-        "normalization": "cb683d8058d17edc",
-        "plane_sum": "4bb673ed3b9a17d0", "pyramid4d": "cc3c970de9888473",
-        "row_sum": "f15f127c6de0e72a", "smooth_norm": "09ebe4017c8136af",
-        "subset_sum": "64aa52bd10b98786"},
-    "bfloat16": {
-        "advect4d_halo": "f5a24bd69129e665", "cosmo": "c5bfe858a28ebf1f",
-        "energy3d": "4ca7d2b85d41aa5d", "heat3d": "c328b211a5d0e059",
-        "heat3d_residual_norm": "cd5ee90b0f95507a",
-        "heat3d_stage": "5820e93d5ad0dac2", "hydro1d": "62f7765e1fc99336",
-        "laplace5": "0575ca5f04a61e10", "laplace_pair": "3db66cdc01f6d0c6",
-        "normalization": "44f1c13ca358d3e3",
-        "plane_sum": "df66c2695b543c98", "pyramid4d": "760327eb3d16a679",
-        "row_sum": "32da988ec0e7c18f", "smooth_norm": "6d13f409b45efb93",
-        "subset_sum": "903058bcf19449ec"},
-    "float16": {
-        "advect4d_halo": "7288bb43c9c8ef1a", "cosmo": "94a1d6addc51c16f",
-        "energy3d": "29fe4d2770460222", "heat3d": "fe0abc3ed9a1b60e",
-        "heat3d_residual_norm": "029ac0480abaa086",
-        "heat3d_stage": "34f8323e3e671c27", "hydro1d": "b5609f92e064482c",
-        "laplace5": "6bb546b24a20e980", "laplace_pair": "11556491bef9908a",
-        "normalization": "ebdf5e1820d7935d",
-        "plane_sum": "e1df323b450ee052", "pyramid4d": "221fa92b14fe9cee",
-        "row_sum": "cc09a04a94540771", "smooth_norm": "93ae2b074ce9bb07",
-        "subset_sum": "a82a5b1187f7cddf"},
-}
-
-
-def _golden(name):
-    return from_reference_dict(
-        json.loads(golden_path(name).read_text()))
-
-
-def _plan(name):
-    return compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
-                           device="cpu").kernel_plan
-
-
-def _dname(dtype) -> str:
-    return str(dtype).removeprefix("torch.")
-
-
-def inputs(name, kplan, rng, dtype=torch.float32, dims=DIM):
-    """One seeded array per axiom of ``kplan`` at ``dims`` (hydro1d's
-    density positive, as in the repository's hydro benchmark), rounded
-    to ``dtype`` and held as float32 (each value exact in both)."""
-    sizes = {sym: dims.get(d, 3) for d, sym in kplan.dim_sizes}
-    out = {}
-    for ax in kplan.axioms:
-        ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
-        shape = [sizes[ext[d][0]] + ext[d][2] - ext[d][1] for d in ax.dims]
-        a = rng.standard_normal(shape).astype(np.float32)
-        if name == "hydro1d" and ax.array == "rho":
-            a = a * a + 1.0
-        a = hydro2d_state(name, ax.array, a)
-        out[ax.array] = torch.from_numpy(a).to(dtype).float()
-    return out
 
 
 def batch_of(examples: list) -> dict:
     return {k: torch.stack([e[k] for e in examples]) for k in examples[0]}
-
-
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal dtype, shape and bits (a NaN equal to the same NaN)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
-    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +58,7 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=_dname)
-@pytest.mark.parametrize("name", sorted(SINGLE_SOURCES["float32"]))
+@pytest.mark.parametrize("name", sorted(SOURCES["float32"]))
 def test_single_sources_are_unchanged(name, dtype):
     h = hashlib.sha256()
     for call in _golden(name).calls:
@@ -159,7 +66,7 @@ def test_single_sources_are_unchanged(name, dtype):
             src = emit_source(call, dtype)
             assert src == emit_source(call, dtype, batched=False)
             h.update(src.encode())
-    assert h.hexdigest()[:16] == SINGLE_SOURCES[_dname(dtype)][name]
+    assert h.hexdigest()[:16] == SOURCES[_dname(dtype)][name]
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
@@ -193,122 +100,14 @@ def test_batched_source_differs_only_where_it_finds_its_example(name):
 # The emulated kernels
 # ---------------------------------------------------------------------------
 
-_EMU_LIBS: dict = {}
-
-
-def _digest(src: str) -> str:
-    return hashlib.sha256(src.encode() + k1.HEADER.read_bytes()
-                          + EMULATE_H.read_bytes()).hexdigest()[:24]
-
-
-def _compile(src: str, build_dir: pathlib.Path) -> pathlib.Path:
-    digest = _digest(src)
-    cpp, so = build_dir / f"{digest}.cpp", build_dir / f"{digest}.so"
-    if not so.exists():
-        cpp.write_text(src)
-        out = subprocess.run(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-DHFAV_EMULATE", f"-I{k1.CSRC}", "-o", str(so), str(cpp)],
-            capture_output=True, text=True)
-        assert out.returncode == 0, out.stderr[-4000:]
-    return so
-
-
-def _emulated(call, dtype, batched, build_dir):
-    src = emit_source(call, dtype, batched)
-    digest = _digest(src)
-    if digest not in _EMU_LIBS:
-        lib = ctypes.CDLL(str(_compile(src, build_dir)))
-        k1._bind(lib)
-        lib.hfav_emulate_block_stride.argtypes = [ctypes.c_longlong]
-        lib.hfav_emulate_block_stride(BLOCK_STRIDE if batched else 1)
-        _EMU_LIBS[digest] = lib
-    return _EMU_LIBS[digest]
-
-
-def _prebuild(build_dir):
-    """Compile every program's single and batched sources in the three
-    dtypes, several compilers at a time."""
-    srcs = {}
-    for name in ALL_PROGRAMS:
-        for call in _plan(name).calls:
-            if call.has_grid:
-                for dtype in DTYPES:
-                    for batched in (False, True):
-                        src = emit_source(call, dtype, batched)
-                        srcs[_digest(src)] = src
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        list(pool.map(lambda s: _compile(s, build_dir), srcs.values()))
-
-
-@contextlib.contextmanager
-def emulated_interpreter(build_dir, name="_emulated_cuda_batched"):
-    """The emulated K1 registered as interpreter ``name`` of float32,
-    bf16 and float16 with a batched ``build_call``, its outputs and
-    scratch starting as NaN (a step no block writes shows), while the
-    context lasts."""
-
-    def build_call(call, sizes, dtype, *, device=None, chunk=None,
-                   plane_chunk=None):
-        lay = CallLayout(call, dtype)
-        lib = _emulated(call, dtype, False, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(lib), chunk,
-                             plane_chunk=plane_chunk)
-
-        def fn(*args):
-            return k1.run_kernel(lib, lay, run, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    def build_batched(call, sizes, dtype, *, device=None, chunk=None,
-                      plane_chunk=None):
-        # as kernel.build_batched: the single call's launch, from the
-        # single kernel's residency, once for each example
-        lay = CallLayout(call, dtype)
-        single = _emulated(call, dtype, False, build_dir)
-        lib = _emulated(call, dtype, True, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(single), chunk,
-                             plane_chunk=plane_chunk)
-        shapes = k1.input_shapes(call, sizes)
-
-        def fn(*args):
-            batch = args[0].shape[0]
-            for t, shape in zip(args, shapes):
-                assert tuple(t.shape) == (batch, *shape), t.shape
-                assert t.dtype == dtype
-            brun = k1.batch_launch(lay, run, shapes, batch)
-            return k1.run_kernel(lib, lay, brun, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    def poisoned(lay, run, device):  # a step no block writes stays NaN
-        outs, scratch = alloc_outputs(lay, run, device)
-        for t in outs + [scratch]:
-            t.fill_(float("nan"))
-        return outs, scratch
-
-    alloc_outputs = k1.alloc_outputs
-    k1.alloc_outputs = poisoned
-    register_interpreter(InterpreterSpec(
-        name, build_call, STENCIL_CAPABILITIES, dtypes=frozenset(DTYPES),
-        flags=frozenset({"chunk", "plane_chunk"}),
-        build_batched=build_batched))
-    clear_compile_cache()
-    try:
-        yield name
-    finally:
-        clear_compile_cache()
-        unregister_interpreter(name)
-        k1.alloc_outputs = alloc_outputs
-
-
 @pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    build_dir = tmp_path_factory.mktemp("emulated_batched_kernels")
-    _prebuild(build_dir)
-    with emulated_interpreter(build_dir) as name:
+def emulator():
+    """The emulated K1, every program's single and batched seated sources
+    in the three dtypes compiled first, several compilers at a time."""
+    prebuild([(call, dtype, True) for name in ALL_PROGRAMS
+              for call in _plan(name).calls if call.has_grid
+              for dtype in DTYPES])
+    with emulated() as name:
         yield name
 
 
@@ -328,10 +127,6 @@ def single_outputs(name, dtype, emulator, b: int, **opts):
                               device="cpu", dtype=dtype, **opts)
         _SINGLES[key] = (arrs, gen.fn(**arrs))
     return _SINGLES[key]
-
-
-def grid_calls(name) -> int:
-    return sum(c.has_grid for c in _plan(name).calls)
 
 
 def check_batched(name, dtype, emulator, batch, **opts):

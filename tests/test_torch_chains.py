@@ -21,11 +21,11 @@ minimal failing descriptor:
   ``unfused`` (the reference's Pallas interpreter cannot run with the
   installed jax, ROADMAP);
 * the stencil kernel K1 compiled as host C++ (``-DHFAV_EMULATE``, the
-  fixture of ``tests/test_torch_emit.py``) with small forced row chunks
-  and plane chunks, against ``interp_torch``;
+  emulated ``"cuda"`` interpreter of ``tests/_emulate.py``) with small
+  forced row chunks and plane chunks, against ``interp_torch``;
 
 and the barriers of each chain's emitted row step against the hazard
-analysis of ``tests/test_torch_emit.py`` (``check_barriers``).
+analysis of ``tests/_emulate.py`` (``check_barriers``).
 
 Tolerance: the repository's conformance tolerance, ``atol=2e-4,
 rtol=1e-3`` (``tests/test_interp_conformance.py``).
@@ -41,13 +41,13 @@ import pytest
 
 import repro.core as rc
 import repro_torch.core as tc
+from _emulate import check_barriers
+from _emulate import emulator  # noqa: F401 (the emulated K1)
 from _progen import _ref_str, _wsum, chain_halo, random_chain, shrink_chain
 from repro.core.plan import register_step_builder as ref_register
 from repro.core.plan import unregister_step_builder as ref_unregister
 from repro_torch.core.plan import (register_step_builder,
                                    unregister_step_builder)
-from test_torch_emit import check_barriers
-from test_torch_emit import emulator  # noqa: F401 (the emulated K1)
 
 TOL = dict(atol=2e-4, rtol=1e-3)
 SEEDS = range(12)

@@ -2,8 +2,8 @@
 owned row is read from the plan (the longest chain of reads back through
 the rolling windows), and the chooser takes any count of chunks.
 
-* The emulated kernel (``-DHFAV_EMULATE``, outputs and global scratch
-  poisoned with NaN) at forced row chunks of 1, 2, 3 and 5 and at the
+* The emulated kernel (``-DHFAV_EMULATE``, ``tests/_emulate.py``: outputs
+  seated as on the card, outputs and global scratch poisoned with NaN) at forced row chunks of 1, 2, 3 and 5 and at the
   chooser's own gives the single-chunk launch's bits on every program
   without accumulators; one row fewer of prime breaks an owned row of
   cosmo and hydro2d, so the derived prime is the least that is right.
@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_emit import DIM, _arrays, _plan
-from test_torch_emit import emulator  # noqa: F401 (the emulated K1)
+from _emulate import DIM, _arrays, _plan
+from _emulate import emulator  # noqa: F401 (the emulated K1)
 from repro_torch import obs
 from repro_torch.core import ALL_PROGRAMS, compile_program
 from repro_torch.kernels.stencil2d import kernel as k1
@@ -82,6 +82,7 @@ def test_one_row_less_of_prime_breaks_an_owned_row(name, emulator,
     reach = CallLayout._row_reach
     monkeypatch.setattr(CallLayout, "_row_reach",
                         lambda self: reach(self) - 1)
+    monkeypatch.setattr(k1, "_CALLS", {})  # layouts with the shorter prime
     assert CallLayout(kplan.calls[0]).prime == 3
     got = _run(name, emulator, arrs, chunk=5)
     assert any(not torch.equal(_bits(got[k]), _bits(one[k]))

@@ -10,49 +10,37 @@ Three legs:
 * the emitted kernels compiled as host C++ (``-DHFAV_EMULATE``: blocks
   one after another, a block's threads as host threads meeting at a
   barrier in ``__syncthreads``, ``cp.async`` deferred to the wait that
-  retires it) and held against ``interp_torch`` with small forced row
-  chunks, which tests the kernels' slot, clamp, chunk, priming, ring and
-  ownership logic and the device fold of accumulator partials without a
-  GPU;
+  retires it; ``tests/_emulate.py``'s emulated ``"cuda"`` interpreter,
+  outputs seated as on the card) and held against ``interp_torch`` with
+  small forced row chunks, which tests the kernels' slot, clamp, chunk,
+  priming, ring and ownership logic and the device fold of accumulator
+  partials without a GPU;
 * the row step's barriers, checked against a hazard analysis of each
-  call's step reads and writes written here, apart from the emitter's;
+  call's step reads and writes (``tests/_emulate.py``'s), apart from the
+  emitter's;
 * the launch chooser at a given residency;
 
 plus the on-card cases, which need a CUDA device and ``nvcc`` and skip
 without one.
 """
-import ctypes
-import hashlib
 import json
 import re
-import shutil
 import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from _emulate import DIM, _arrays, _plan, check_barriers, host_build
+from _emulate import emulator  # noqa: F401 (the emulated K1)
 from _goldens import golden_path
-from _inputs import hydro2d_state
 from repro_torch.core import (ALL_PROGRAMS, PlanUnsupported,
                               compile_program, from_reference_dict)
-from repro_torch.core.interpreters import (STENCIL_CAPABILITIES,
-                                           InterpreterSpec,
-                                           register_interpreter,
-                                           unregister_interpreter)
 from repro_torch.core.plan import acc_init_wrap
 from repro_torch.kernels.stencil2d import kernel as k1
 from repro_torch.kernels.stencil2d.emit import (COLS_PER_THREAD, CallLayout,
                                                 LoweringError, c_float,
                                                 emit_source, lower_body)
-
-EMULATE_H = k1.CSRC / "emulate.h"
-DIM = {"i": 20, "j": 7, "k": 4, "l": 3}
-
-
-def _plan(name):
-    return compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
-                           device="cpu").kernel_plan
 
 
 def _steps(kplan):
@@ -244,95 +232,6 @@ def test_chooser_fills_waves_from_the_given_residency():
 # The row step's barriers, against a hazard analysis of its own
 # ---------------------------------------------------------------------------
 
-def _emitted_phases(src: str) -> tuple[dict, int]:
-    """Each step's phase in the emitted row step (a phase ends at each
-    ``__syncthreads()`` between the row step's markers), and the
-    barriers a row step meets (the one after the ring's wait included)."""
-    lines = src.splitlines()
-    start = lines.index("    // -- row step --")
-    end = lines.index("    // -- end of row step --")
-    assert "__syncthreads();" in lines[start - 4]
-    phase, barriers, of = 0, 1, {}
-    for line in lines[start:end]:
-        if line.strip() == "__syncthreads();":
-            phase += 1
-            barriers += 1
-        m = re.search(r"if \(.*\) \{  // step (\d+)$", line)
-        if m:
-            of[int(m.group(1))] = phase
-    return of, barriers
-
-
-def _shared_touches(step, plane_leads):
-    """(reads, writes) of one step in shared memory as (location, row,
-    column offset): locals at the writer's column, produced windows at a
-    row (a plane window at its plane and row)."""
-    reads, writes = [], []
-    for rd in step.reads:
-        if rd.src.startswith("local:"):
-            reads.append((rd.src, None, rd.col0))
-        elif rd.src.startswith("b_"):
-            reads.append(((rd.src, rd.p_off), rd.j_off, rd.col0))
-    if step.acc is None:
-        for targets in step.writes:
-            for kind, tgt in targets:
-                if kind == "local":
-                    writes.append((f"local:{tgt}", None, 0))
-                elif kind == "buf":
-                    writes.append(((str(tgt), plane_leads.get(str(tgt), 0)),
-                                   step.lead, step.out_col0))
-    return reads, writes
-
-
-def _same_place(a, b, plane_leads) -> bool:
-    """Whether two touches may be the same element of another thread."""
-    if a[0] != b[0] or a[2] == b[2]:
-        return False
-    if a[1] is None:  # a local, at another column
-        return True
-    if a[0][0] in plane_leads:  # a plane window: rows clamp at the top
-        return True if a[1] is None or b[1] is None else \
-            min(a[1], b[1]) <= max(a[1], b[1])
-    return a[1] == b[1]
-
-
-def check_barriers(call) -> int:
-    """Assert that a barrier separates, inside one row step, every write
-    of a shared element and a later read or overwrite of it by another
-    thread, and that a register local is read only at its writer's column
-    and phase; returns the barriers a row step meets."""
-    src = emit_source(call)
-    phase, barriers = _emitted_phases(src)
-    assert sorted(phase) == list(range(len(call.steps)))
-    assert barriers == CallLayout(call).barriers_per_row
-    plane_leads = {w.name: w.p_lead for w in call.windows if w.plane}
-    touches = [_shared_touches(s, plane_leads) for s in call.steps]
-    for w in range(len(call.steps)):
-        for r in range(w + 1, len(call.steps)):
-            wr_w, rd_w = touches[w][1], touches[w][0]
-            rd_r, wr_r = touches[r]
-            hazard = any(_same_place(a, b, plane_leads)
-                         for a in wr_w for b in rd_r + wr_r) \
-                or any(_same_place(a, b, plane_leads)
-                       for a in rd_w for b in wr_r)
-            if hazard:
-                assert phase[w] < phase[r], (
-                    f"{call.name}: steps {w} ({call.steps[w].op}) and {r} "
-                    f"({call.steps[r].op}) share a shared-memory element "
-                    f"across threads with no barrier between them")
-    for name in set(re.findall(r"float (L_\w+(?:, L_\w+)*);", src)):
-        for reg in name.split(", "):
-            local = reg[2:]
-            writer = next(i for i, (_, wr) in enumerate(touches)
-                          for t in wr if t[0] == f"local:{local}")
-            for i, (rd, _) in enumerate(touches):
-                for t in rd:
-                    if t[0] == f"local:{local}":
-                        assert t[2] == 0 and phase[i] == phase[writer], \
-                            f"{call.name}: register local {local}"
-    return barriers
-
-
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
 def test_row_step_barriers_cover_every_hazard(name):
     for call in _plan(name).calls:
@@ -355,13 +254,10 @@ def test_hydro1d_row_step_drops_barriers():
 # The emitted kernels, compiled as host C++
 # ---------------------------------------------------------------------------
 
-def test_emulated_cp_async_is_deferred(tmp_path):
+def test_emulated_cp_async_is_deferred():
     """The emulation's cp.async writes NaNs at issue and the data only at
     the wait_group that retires its group."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++)")
-    cpp = tmp_path / "ring.cpp"
-    cpp.write_text(
+    exe = host_build(
         '#include "emulate.h"\n#include <cmath>\n#include <cstdio>\n'
         "int main() {\n"
         "  alignas(16) float src[8] = {1, 2, 3, 4, 5, 6, 7, 8};\n"
@@ -375,87 +271,9 @@ def test_emulated_cp_async_is_deferred(tmp_path):
         "  const bool first = dst[3] == 4 && std::isnan(dst[4]);\n"
         "  hfav_cp_async_wait(0);\n"
         '  std::printf("%d %d %d\\n", nan_before, first, dst[4] == 5);\n'
-        "}\n")
-    exe = tmp_path / "ring"
-    out = subprocess.run(["g++", "-std=c++20", "-pthread", "-DHFAV_EMULATE",
-                          f"-I{k1.CSRC}", "-o", str(exe), str(cpp)],
-                         capture_output=True, text=True)
-    assert out.returncode == 0, out.stderr[-2000:]
+        "}\n", program=True)
     assert subprocess.run([str(exe)], capture_output=True,
                           text=True).stdout.split() == ["1", "1", "1"]
-
-# ---------------------------------------------------------------------------
-# The emitted kernels, compiled as host C++
-# ---------------------------------------------------------------------------
-
-_EMU_LIBS: dict = {}
-
-
-def _emulated(call, build_dir):
-    src = emit_source(call)
-    digest = hashlib.sha256(src.encode() + k1.HEADER.read_bytes()
-                            + EMULATE_H.read_bytes()).hexdigest()[:24]
-    if digest not in _EMU_LIBS:
-        cpp = build_dir / f"{digest}.cpp"
-        so = build_dir / f"{digest}.so"
-        cpp.write_text(src)
-        out = subprocess.run(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-DHFAV_EMULATE", f"-I{k1.CSRC}", "-o", str(so), str(cpp)],
-            capture_output=True, text=True)
-        assert out.returncode == 0, out.stderr[-4000:]
-        lib = ctypes.CDLL(str(so))
-        k1._bind(lib)
-        _EMU_LIBS[digest] = lib
-    return _EMU_LIBS[digest]
-
-
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    build_dir = tmp_path_factory.mktemp("emulated_kernels")
-
-    def build_call(call, sizes, dtype, *, device=None, chunk=None,
-                   plane_chunk=None):
-        # as kernel.build_call: the launch from the built kernel's
-        # residency (the emulation's occupancy model)
-        lay = CallLayout(call)
-        lib = _emulated(call, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(lib), chunk,
-                             plane_chunk=plane_chunk)
-
-        def fn(*args):
-            return k1.run_kernel(lib, lay, run, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    def poisoned(lay, run, device):  # a step no block writes stays NaN
-        outs, scratch = alloc_outputs(lay, run, device)
-        for t in outs + [scratch]:
-            t.fill_(float("nan"))
-        return outs, scratch
-
-    alloc_outputs = k1.alloc_outputs
-    k1.alloc_outputs = poisoned
-    register_interpreter(InterpreterSpec(
-        "_emulated_cuda", build_call, STENCIL_CAPABILITIES,
-        flags=frozenset({"chunk", "plane_chunk"})))
-    yield "_emulated_cuda"
-    unregister_interpreter("_emulated_cuda")
-    k1.alloc_outputs = alloc_outputs
-
-
-def _arrays(kplan, rng, dims=DIM):
-    sizes = {sym: dims.get(d, 3) for d, sym in kplan.dim_sizes}
-    out = {}
-    for ax in kplan.axioms:
-        ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
-        shape = [sizes[ext[d][0]] + ext[d][2] - ext[d][1] for d in ax.dims]
-        out[ax.array] = hydro2d_state(
-            kplan.program, ax.array,
-            rng.standard_normal(shape).astype(np.float32))
-    return out
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))

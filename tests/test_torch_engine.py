@@ -7,9 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+from _emulate import _arrays, emulated
 from _interp_utils import arrays_for
 from repro.core import compile_program as ref_compile
 from repro.core.programs import ALL_PROGRAMS as REF_PROGRAMS
+from repro_torch import obs
 from repro_torch.core import (ALL_PROGRAMS, PlanUnsupported, build_unfused,
                               clear_compile_cache, compile_program,
                               execute_plan, get_interpreter)
@@ -114,13 +116,18 @@ def test_unknown_build_option_raises():
                         device="cpu", chunk=4)
 
 
-@pytest.mark.parametrize("interp", ["cuda", "interp_torch"])
+@pytest.mark.parametrize("interp", ["cuda", "interp_torch", "emulated"])
 def test_layout_constructs_are_refused(interp):
     """A plan carrying a LayoutApply construct (here a padded window):
     the CUDA kernel refuses it with the typed PlanUnsupported before
     anything builds, as the reference's Pallas kernel does; the
     layout-aware ``interp_torch`` executes it, bit-identical to the
-    unpadded plan."""
+    unpadded plan.  The CUDA kernel's host emulation
+    (``tests/_emulate.py``) is the ``"cuda"`` spec with its driver's
+    device facts swapped: it declares the card's seats, dtypes, flags and
+    capabilities, refuses the plan as the card does, and stores a float32
+    cosmo run's one output at its seat (``k1.seated`` 1,
+    ``plan.reseated`` 0)."""
     kplan = compile_program(ALL_PROGRAMS["laplace5"](),
                             backend="interp_torch", device="cpu").kernel_plan
     call = kplan.calls[0]
@@ -130,6 +137,24 @@ def test_layout_constructs_are_refused(interp):
     if interp == "cuda":
         with pytest.raises(PlanUnsupported, match="align_pad"):
             execute_plan(bad, interpreter=interp, device="cpu")
+        return
+    if interp == "emulated":
+        cuda = get_interpreter("cuda")
+        with emulated() as name:
+            emu = get_interpreter(name)
+            assert (emu.seats, emu.dtypes, emu.flags, emu.capabilities) \
+                == (cuda.seats, cuda.dtypes, cuda.flags, cuda.capabilities)
+            with pytest.raises(PlanUnsupported, match="align_pad"):
+                execute_plan(bad, interpreter=name, device="cpu")
+            cosmo = compile_program(ALL_PROGRAMS["cosmo"](),
+                                    backend="interp_torch",
+                                    device="cpu").kernel_plan
+            counters = ("k1.seated", "plan.reseated")
+            before = [obs.counter(c) for c in counters]
+            execute_plan(cosmo, interpreter=name, device="cpu")(
+                **_arrays(cosmo, np.random.default_rng(4)))
+            assert [obs.counter(c) - b
+                    for c, b in zip(counters, before)] == [1, 0]
         return
     u = np.random.default_rng(2).standard_normal((7, 20)).astype(np.float32)
     got = execute_plan(bad, interpreter=interp, device="cpu")(cell=u)

@@ -38,7 +38,7 @@ def test_every_module_imports_without_jax_or_repro():
                 "examples.serve_lm", "examples.train_lm",
                 "roofline.analysis", "roofline.report", "distributed.ctx",
                 "distributed.sharding", "distributed.pipeline",
-                "launch.mesh", "launch.specs", "launch.dryrun"):
+                "launch.mesh", "launch.specs", "launch.dryrun", "cards"):
         assert f"repro_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

@@ -17,13 +17,14 @@ divided by 4).  The module imports no JAX at its top level.
 from __future__ import annotations
 
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from _emulate import (EMU_ATTN_CASES, PRIMS_SRC, _attn_inputs, _frag, _np,
+                      _torch, emulate_ssd, host_build, kernel_library,
+                      ssd_inputs)
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.kernels.flash_attention import kernel as k2
 from repro_torch.kernels.flash_decode import kernel as k3
@@ -31,9 +32,6 @@ from repro_torch.kernels.ssd import kernel as k4
 from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models import init_params
 from repro_torch.serve import engine
-from test_torch_attn_kernels import (EMU_ATTN_CASES, EMULATE_H, PRIMS_SRC,
-                                     _attn_inputs, _frag, _np, _torch)
-from test_torch_ssd_kernel import _emulate, _inputs
 
 FP16 = dict(atol=2.5e-4, rtol=4e-3)
 FP16_REL_L2 = 2.5e-4
@@ -49,35 +47,18 @@ def _close(got, want, tag=""):
     assert _rel_l2(got, want) <= FP16_REL_L2, tag
 
 
-def _gxx(out, src, *defines):
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    res = subprocess.run(
-        ["g++", "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC",
-         "-pthread", "-DHFAV_EMULATE", f"-I{EMULATE_H.parent}", *defines,
-         "-o", str(out), str(src)], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return ctypes.CDLL(str(out))
-
-
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def emulated():
     """K2, K3 and K4 built by ``g++ -DHFAV_EMULATE``."""
-    out = tmp_path_factory.mktemp("emulated_float16")
-    libs = {}
-    for name, mod in (("fa", k2), ("fd", k3), ("ssd", k4)):
-        libs[name] = _gxx(out / f"{name}.so", mod.SOURCE)
-        mod._bind(libs[name])
-    return libs
+    return {name: kernel_library(mod)
+            for name, mod in (("fa", k2), ("fd", k3), ("ssd", k4))}
 
 
-def test_emulated_f16_mma_matches_numpy(tmp_path):
+def test_emulated_f16_mma_matches_numpy():
     """``hfav_mma_f16`` (mma.sync m16n8k16 f16, float32 accumulation) and
     ldmatrix on float16 bits: the fragment layouts of the bf16 product,
     the values read as float16."""
-    src = tmp_path / "prims.cc"
-    src.write_text(PRIMS_SRC.replace("hfav_mma_bf16", "hfav_mma_f16"))
-    lib = _gxx(tmp_path / "prims.so", src)
+    lib = host_build(PRIMS_SRC.replace("hfav_mma_bf16", "hfav_mma_f16"))
     rng = np.random.default_rng(12)
     mats = torch.from_numpy(rng.standard_normal((2, 3, 16, 16)).astype(
         np.float32) * 100).half()
@@ -132,7 +113,7 @@ SPLIT_P_CASES = [(1, 257, 2, 128, 5e-5), (4, 32, 4, 16, 1e-6)]
 
 
 @pytest.mark.parametrize("case", SPLIT_P_CASES)
-def test_emulated_flash_attention_float16_split_p(case, emulated, tmp_path):
+def test_emulated_flash_attention_float16_split_p(case, emulated):
     """float16, causal: P split in two float16 terms keeps the float32
     function's accuracy (the output's own rounding aside); one float16 P
     is 10x further off and at the gate's relative L2."""
@@ -141,8 +122,7 @@ def test_emulated_flash_attention_float16_split_p(case, emulated, tmp_path):
                _attn_inputs((B, S, H, D), (B, S, 1, D), 11))
     want = k2.flash_attention_plain(q, k, v, causal=True, window=None,
                                     q_offset=0, scale=D ** -0.5)
-    one = _gxx(tmp_path / "fa1.so", k2.SOURCE, "-DFA_F16_TERMS=1")
-    k2._bind(one)
+    one = kernel_library(k2, ("-DFA_F16_TERMS=1",))
     errs = []
     for lib in (emulated["fa"], one):
         o = torch.empty_like(q)
@@ -258,8 +238,8 @@ SSD_CASES = [
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_emulated_ssd_float16_matches_plain(case, emulated):
     B, S, H, P, N, chunk = case
-    args = _inputs(B, S, H, P, N, seed=1, dtype=torch.float16)
-    got, L = _emulate(emulated["ssd"], args, chunk)
+    args = ssd_inputs(B, S, H, P, N, seed=1, dtype=torch.float16)
+    got, L = emulate_ssd(emulated["ssd"], args, chunk)
     want = ssd_scan(*args, chunk=L)
     assert got.dtype == want.dtype == torch.float16
     _close(got, want, str(case))
@@ -273,8 +253,8 @@ def test_emulated_ssd_float16_matches_reference_kernel(case, emulated):
     from repro.kernels.ssd import ssd_pallas
 
     B, S, H, P, N, chunk = case
-    args = _inputs(B, S, H, P, N, seed=1, dtype=torch.float16)
-    got, _ = _emulate(emulated["ssd"], args, chunk)
+    args = ssd_inputs(B, S, H, P, N, seed=1, dtype=torch.float16)
+    got, _ = emulate_ssd(emulated["ssd"], args, chunk)
     j = [jnp.asarray(_np(a)) for a in args]
     j[0] = j[0].astype(jnp.float16)
     want = ssd_pallas(*j, chunk=chunk, interpret=True)
@@ -334,7 +314,7 @@ def test_flash_decode_float16_matches_plain_on_card(case):
 def test_ssd_float16_matches_plain_on_card(case):
     _need_card()
     B, S, H, P, N, chunk = case
-    args = _inputs(B, S, H, P, N, seed=1, device="cuda", dtype=torch.float16)
+    args = ssd_inputs(B, S, H, P, N, seed=1, device="cuda", dtype=torch.float16)
     before = k4.launches
     got = k4.ssd_kernel(*args, chunk=chunk)
     torch.cuda.synchronize()

@@ -6,9 +6,11 @@ copies it.
 Legs:
 
 * the rule, read from the plan alone;
-* the seated kernels compiled as host C++ (``-DHFAV_EMULATE``, every
-  output starting as NaN, so an element the kernel neither stores nor
-  fills shows) against ``assemble`` of the padded kernels' outputs, bit
+* the seated kernels compiled as host C++ (``-DHFAV_EMULATE``, the
+  emulated ``"cuda"`` interpreter of ``tests/_emulate.py``, every output
+  starting as NaN, so an element the kernel neither stores nor fills
+  shows) against ``assemble`` of the outputs of its padded twin (the
+  padded contract, ``seats=False``), bit
   for bit: every program in float32, the programs with border rows, border
   tiles and a whole-array seat in bf16 and float16, single calls and a
   batch of 3 (whose blocks run in an order that interleaves the
@@ -20,70 +22,30 @@ Legs:
 plus the on-card case, which needs a CUDA device and ``nvcc`` and skips
 without one.
 """
-import concurrent.futures
-import contextlib
-import ctypes
 import dataclasses
-import hashlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from _inputs import hydro2d_state
+from _emulate import ODD_DIM as DIM
+from _emulate import (NAME, _dname, _plan, emulated, emulated_spec, inputs,
+                      prebuild, same_bits)
 from repro_torch import obs
-from repro_torch.core import ALL_PROGRAMS, compile_program
+from repro_torch.core import ALL_PROGRAMS
 from repro_torch.core.interpreters import (assemble, execute_plan,
                                            get_interpreter,
                                            register_interpreter, seatable,
                                            unregister_interpreter)
-from repro_torch.kernels.stencil2d import kernel as k1
 from repro_torch.kernels.stencil2d.emit import CallLayout, emit_source
 
-EMULATE_H = k1.CSRC / "emulate.h"
-#: Odd Ni: 2-byte rows start in turn on and between 4-byte words.
-DIM = {"i": 37, "j": 9, "k": 4, "l": 3}
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: Border rows (cosmo, j 2 -2), a whole-array seat (hydro1d, j 0 0),
 #: border tiles (heat3d's plane dim, advect4d_halo's inner outer dim).
 BORDERS = ("cosmo", "hydro1d", "heat3d", "advect4d_halo")
-#: The stride of the emulated batched launch's block order.
-BLOCK_STRIDE = 7
-
-
-def _plan(name):
-    return compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
-                           device="cpu").kernel_plan
-
-
-def _dname(dtype) -> str:
-    return str(dtype).removeprefix("torch.")
-
-
-def inputs(name, kplan, rng, dtype, dims=DIM):
-    """One seeded array per axiom (hydro1d's density positive), rounded
-    to ``dtype`` and held as float32."""
-    sizes = {sym: dims.get(d, 3) for d, sym in kplan.dim_sizes}
-    out = {}
-    for ax in kplan.axioms:
-        ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
-        shape = [sizes[ext[d][0]] + ext[d][2] - ext[d][1] for d in ax.dims]
-        a = rng.standard_normal(shape).astype(np.float32)
-        if name == "hydro1d" and ax.array == "rho":
-            a = a * a + 1.0
-        a = hydro2d_state(name, ax.array, a)
-        out[ax.array] = torch.from_numpy(a).to(dtype).float()
-    return out
-
-
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal dtype, shape and bits (a NaN equal to the same NaN)."""
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
-    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+#: The padded twin of the emulated K1: the padded contract, re-seated by
+#: ``assemble``.
+PADDED = "_emu_padded"
 
 
 # ---------------------------------------------------------------------------
@@ -121,131 +83,23 @@ def test_seatable_reads_the_plan():
 # The emulated kernels
 # ---------------------------------------------------------------------------
 
-_EMU_LIBS: dict = {}
-
-
-def _digest(src: str) -> str:
-    return hashlib.sha256(src.encode() + k1.HEADER.read_bytes()
-                          + EMULATE_H.read_bytes()).hexdigest()[:24]
-
-
-def _compile(src: str, build_dir):
-    digest = _digest(src)
-    cpp, so = build_dir / f"{digest}.cpp", build_dir / f"{digest}.so"
-    if not so.exists():
-        cpp.write_text(src)
-        out = subprocess.run(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-DHFAV_EMULATE", f"-I{k1.CSRC}", "-o", str(so), str(cpp)],
-            capture_output=True, text=True)
-        assert out.returncode == 0, out.stderr[-4000:]
-    return so
-
-
-def _emulated(call, dtype, batched, seated, build_dir):
-    src = emit_source(call, dtype, batched, seated)
-    digest = _digest(src)
-    if digest not in _EMU_LIBS:
-        lib = ctypes.CDLL(str(_compile(src, build_dir)))
-        k1._bind(lib)
-        lib.hfav_emulate_block_stride.argtypes = [ctypes.c_longlong]
-        lib.hfav_emulate_block_stride(BLOCK_STRIDE if batched else 1)
-        _EMU_LIBS[digest] = lib
-    return _EMU_LIBS[digest]
-
-
 def _cases():
     return [(n, torch.float32) for n in sorted(ALL_PROGRAMS)] \
         + [(n, d) for n in BORDERS for d in DTYPES[1:]]
 
 
-def _prebuild(build_dir):
-    """Compile every case's single and batched sources, padded and
-    seated, several compilers at a time."""
-    srcs = {}
-    for name, dtype in _cases():
-        for call in _plan(name).calls:
-            if call.has_grid:
-                for batched in (False, True):
-                    for seated in (False, True):
-                        src = emit_source(call, dtype, batched, seated)
-                        srcs[_digest(src)] = src
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        list(pool.map(lambda s: _compile(s, build_dir), srcs.values()))
-
-
-def emulated_spec(spec, build_dir):
-    """``spec`` (an ``InterpreterSpec``) with K1's callables emulated:
-    the emitted sources, padded or seated as the host half asks, built
-    as host C++ and launched on CPU tensors through ``k1.run_kernel``."""
-
-    def build_call(call, sizes, dtype, *, device=None, chunk=None,
-                   plane_chunk=None, seated=False):
-        lay = CallLayout(call, dtype, seated)
-        lib = _emulated(call, dtype, False, seated, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(lib), chunk,
-                             plane_chunk=plane_chunk)
-
-        def fn(*args):
-            return k1.run_kernel(lib, lay, run, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    def build_batched(call, sizes, dtype, *, device=None, chunk=None,
-                      plane_chunk=None, seated=False):
-        lay = CallLayout(call, dtype, seated)
-        single = _emulated(call, dtype, False, seated, build_dir)
-        lib = _emulated(call, dtype, True, seated, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(single), chunk,
-                             plane_chunk=plane_chunk)
-        shapes = k1.input_shapes(call, sizes)
-
-        def fn(*args):
-            brun = k1.batch_launch(lay, run, shapes, args[0].shape[0])
-            return k1.run_kernel(lib, lay, brun, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    return dataclasses.replace(spec, build_call=build_call,
-                               build_batched=build_batched)
-
-
-@contextlib.contextmanager
-def poisoned_outputs():
-    """Every output and scratch K1 allocates starts as NaN."""
-    real = k1.alloc_outputs
-
-    def poisoned(lay, run, device):
-        outs, scratch = real(lay, run, device)
-        for t in outs + [scratch]:
-            t.fill_(float("nan"))
-        return outs, scratch
-
-    k1.alloc_outputs = poisoned
-    try:
-        yield
-    finally:
-        k1.alloc_outputs = real
-
-
 @pytest.fixture(scope="module")
-def emulators(tmp_path_factory):
-    """Two emulated K1 interpreters, ``_emu_padded`` (the padded contract,
-    re-seated by ``assemble``) and ``_emu_seated`` (``seats``), their
-    outputs starting as NaN."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    build_dir = tmp_path_factory.mktemp("emulated_seated_kernels")
-    _prebuild(build_dir)
-    cuda = get_interpreter("cuda")
-    assert cuda.seats
-    for name, seats in (("_emu_padded", False), ("_emu_seated", True)):
-        register_interpreter(dataclasses.replace(
-            emulated_spec(cuda, build_dir), name=name, seats=seats))
-    with poisoned_outputs():
-        yield build_dir
-    for name in ("_emu_padded", "_emu_seated"):
-        unregister_interpreter(name)
+def emulators():
+    """The emulated K1 (``seats``, as the card) and its padded twin
+    ``_emu_padded``, every case's single and batched sources, padded and
+    seated, compiled first, several compilers at a time."""
+    prebuild([(call, dtype, seated) for name, dtype in _cases()
+              for call in _plan(name).calls if call.has_grid
+              for seated in (False, True)])
+    seated = emulated_spec()
+    assert seated.seats
+    with emulated(seated, emulated_spec(PADDED, seats=False)):
+        yield
 
 
 @pytest.mark.parametrize("batch", [0, 3], ids=["single", "batch3"])
@@ -263,7 +117,7 @@ def test_emulated_seated_outputs_are_assembles_bits(name, dtype, batch,
     arrs = examples[0] if not batch else {
         k: torch.stack([e[k] for e in examples]) for k in examples[0]}
     run = {}
-    for interp in ("_emu_padded", "_emu_seated"):
+    for interp in (PADDED, NAME):
         seated0, reseated0 = obs.counter("k1.seated"), \
             obs.counter("plan.reseated")
         run[interp] = execute_plan(kplan, interpreter=interp, dtype=dtype,
@@ -273,9 +127,9 @@ def test_emulated_seated_outputs_are_assembles_bits(name, dtype, batch,
                                    obs.counter("plan.reseated") - reseated0)
     n_ext = sum(o.kind == "external" for c in kplan.calls if c.has_grid
                 for o in c.outputs)
-    assert run["_emu_padded.counts"] == (0, n_ext)
-    assert run["_emu_seated.counts"] == (n_ext, 0)
-    want, got = run["_emu_padded"], run["_emu_seated"]
+    assert run[PADDED + ".counts"] == (0, n_ext)
+    assert run[NAME + ".counts"] == (n_ext, 0)
+    want, got = run[PADDED], run[NAME]
     assert set(got) == set(want)
     for k in want:
         assert same_bits(got[k], want[k]), (name, k)
@@ -294,7 +148,7 @@ def test_emulated_empty_seat_is_all_zero(name, dims, emulators):
     arrs = inputs(name, kplan, np.random.default_rng(3), torch.float32,
                   dims)
     want, got = (execute_plan(kplan, interpreter=i, device="cpu")(**arrs)
-                 for i in ("_emu_padded", "_emu_seated"))
+                 for i in (PADDED, NAME))
     for k in want:
         assert not want[k].any(), k
         assert same_bits(got[k], want[k]), k
@@ -312,16 +166,12 @@ def test_counters_on_the_cuda_host_half_and_on_interp_torch(emulators):
     and is ``assemble``'s of the interpreter's padded output."""
     kplan = _plan("cosmo")
     arrs = inputs("cosmo", kplan, np.random.default_rng(9), torch.float32)
-    cuda = get_interpreter("cuda")
-    register_interpreter(emulated_spec(cuda, emulators))
-    try:
+    with emulated(emulated_spec("cuda")):
         before = (obs.counter("k1.seated"), obs.counter("plan.reseated"),
                   obs.counter("k1.launch"))
         got = execute_plan(kplan, interpreter="cuda", device="cpu")(**arrs)
         after = (obs.counter("k1.seated"), obs.counter("plan.reseated"),
                  obs.counter("k1.launch"))
-    finally:
-        register_interpreter(cuda)
     assert [b - a for a, b in zip(before, after)] == [1, 0, 1]
     assert tuple(got["unew"].shape) == tuple(arrs["u"].shape)
 

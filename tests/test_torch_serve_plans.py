@@ -312,23 +312,21 @@ def test_failing_batch_fails_its_tickets(monkeypatch):
 @pytest.mark.parametrize("name,shape,n", [("laplace5", (9, 17), 4),
                                           ("normalization", (9, 14), 3)])
 def test_micro_batch_is_one_emulated_launch_per_grid_call(name, shape, n,
-                                                          tmp_path,
                                                           monkeypatch):
     """On an interpreter with a batched ``build_call`` (K1, here its
-    host emulation), a micro-batch of ``n`` requests is one launch per
-    grid ``CallPlan`` of the program (normalization has two), and each
-    answer is its request's single call's bits."""
-    import shutil
-
+    host emulation, seated as on the card), a micro-batch of ``n``
+    requests is one launch per grid ``CallPlan`` of the program
+    (normalization has two), and each answer is its request's single
+    call's bits."""
     import repro_torch.serve.plans as plans
+    from _emulate import emulated as emulated_k1
+    from _emulate import grid_calls, need_gxx
     from repro_torch.kernels.stencil2d import kernel as k1
-    from test_torch_batched import emulated_interpreter, grid_calls
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
+    need_gxx()
     rng = _rng()
     arrays = [{a: rng.standard_normal(shape).astype(np.float32)
                for a in request_sizes_names(name)} for _ in range(n)]
-    with emulated_interpreter(tmp_path) as emulated:
+    with emulated_k1() as emulated:
         monkeypatch.setattr(plans, "VMAP_SAFE", VMAP_SAFE | {emulated})
         with _serve([name], backend=emulated, max_batch=n,
                     max_wait_ms=10_000.0) as srv:

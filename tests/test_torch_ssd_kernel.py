@@ -21,16 +21,14 @@ orders, and an error in cs is multiplied by |A| in an exponent); bf16
 """
 from __future__ import annotations
 
-import ctypes
 import importlib.util
 import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from _emulate import _np, emulate_ssd, kernel_library, ssd_inputs
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.kernels.flash_attention import kernel as k2
 from repro_torch.kernels.flash_decode import kernel as k3
@@ -46,66 +44,14 @@ TOL = dict(atol=2e-4, rtol=1e-3)
 B, S0, STEPS, MAX_SEQ = 4, 12, 8, 64
 
 
-def _np(x):
-    return x.detach().float().cpu().numpy()
-
-
-def _inputs(B, S, H, P, N, *, seed=0, dt_shift=-1.0, device="cpu",
-            dtype=torch.float32):
-    """x (in ``dtype``), dt, A, Bm, Cm, D from a seeded numpy generator."""
-    rng = np.random.default_rng(seed)
-    f = np.float32
-    arrs = [(rng.standard_normal((B, S, H, P)) * 0.5).astype(f),
-            np.log1p(np.exp(rng.standard_normal((B, S, H)) * 0.5
-                            + dt_shift)).astype(f),
-            (-np.exp(rng.standard_normal(H) * 0.3)).astype(f),
-            (rng.standard_normal((B, S, N)) * 0.5).astype(f),
-            (rng.standard_normal((B, S, N)) * 0.5).astype(f),
-            (rng.standard_normal(H) * 0.2).astype(f)]
-    out = [torch.from_numpy(a).to(device) for a in arrs]
-    out[0] = out[0].to(dtype)
-    return out
-
-
 # ---------------------------------------------------------------------------
 # The CUDA source compiled as host C++
 # ---------------------------------------------------------------------------
 
-def _build(build_dir, *defines):
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernel")
-    so = build_dir / "ssd.so"
-    res = subprocess.run(
-        ["g++", "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC",
-         "-pthread", "-DHFAV_EMULATE", *defines, "-o", str(so),
-         str(k4.SOURCE)], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    k4._bind(lib)
-    return lib
-
-
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def emulated():
     """The kernel's library built by ``g++ -DHFAV_EMULATE``."""
-    return _build(tmp_path_factory.mktemp("emulated_ssd"))
-
-
-def _emulate(lib, args, chunk):
-    x = args[0]
-    L = k4.chunk_len(x.shape[1], chunk)
-    y = torch.full_like(x, float("nan"))
-    bufs = k4.scratch(x, args[3].shape[-1], L)
-    for t in bufs:
-        t.fill_(float("nan"))
-    blocks = k4.launch(lib, *args, y, *bufs, L=L, stream=None)
-    B, S, H, P = x.shape
-    nc, n = S // L, -(-L // 64)
-    # one block per (b, chunk, pair of 64-row tiles u <= t), per (b, h,
-    # chunk), per 256 state entries, and per (b, h, chunk, 64-row tile)
-    assert blocks == (B * nc * n * (n + 1) // 2, B * H * nc,
-                      -(-B * H * args[3].shape[-1] * P // 256), B * H * nc * n)
-    return y, L
+    return kernel_library(k4)
 
 
 # B, S, H, P, N, chunk, x dtype
@@ -126,8 +72,8 @@ EMU_CASES = [
 @pytest.mark.parametrize("case", EMU_CASES)
 def test_emulated_ssd_matches_plain(case, emulated):
     B, S, H, P, N, chunk, dt = case
-    args = _inputs(B, S, H, P, N, seed=1, dtype=getattr(torch, dt))
-    got, L = _emulate(emulated, args, chunk)
+    args = ssd_inputs(B, S, H, P, N, seed=1, dtype=getattr(torch, dt))
+    got, L = emulate_ssd(emulated, args, chunk)
     want = ssd_scan(*args, chunk=L)
     tol = EMU_TOL if dt == "float32" else BF16_TOL
     np.testing.assert_allclose(_np(got), _np(want), **tol)
@@ -142,8 +88,8 @@ def test_emulated_ssd_matches_reference_kernel(case, emulated):
     from repro.kernels.ssd import ssd_pallas
 
     B, S, H, P, N, chunk, dt = case
-    args = _inputs(B, S, H, P, N, seed=1, dtype=getattr(torch, dt))
-    got, _ = _emulate(emulated, args, chunk)
+    args = ssd_inputs(B, S, H, P, N, seed=1, dtype=getattr(torch, dt))
+    got, _ = emulate_ssd(emulated, args, chunk)
     j = [jnp.asarray(_np(a)) for a in args]
     if dt == "bfloat16":
         j[0] = j[0].astype(jnp.bfloat16)
@@ -162,18 +108,18 @@ def _smoke_gate():
     return mod.gated, mod.SSD_TOL[torch.float32]
 
 
-def test_one_tf32_term_misses_the_float32_gate(tmp_path, emulated):
+def test_one_tf32_term_misses_the_float32_gate(emulated):
     """The same kernel built with one TF32 product per float32 product
     (``-DSSD_TF32_TERMS=1``) misses ``SSD_TOL`` at mamba2-130m's P, N
     and chunk; the 3xTF32 split of the kernel meets it."""
     gated, tol = _smoke_gate()
-    args = _inputs(1, 512, 2, 64, 128, seed=8)
+    args = ssd_inputs(1, 512, 2, 64, 128, seed=8)
     want = ssd_scan(*args, chunk=256)
-    one = _build(tmp_path, "-DSSD_TF32_TERMS=1")
-    got1, _ = _emulate(one, args, 256)
+    one = kernel_library(k4, ("-DSSD_TF32_TERMS=1",))
+    got1, _ = emulate_ssd(one, args, 256)
     with pytest.raises(AssertionError, match="past"):
         gated(got1, want, "one TF32 term", tol)
-    got3, _ = _emulate(emulated, args, 256)
+    got3, _ = emulate_ssd(emulated, args, 256)
     gated(got3, want, "3xTF32", tol)
 
 
@@ -196,7 +142,7 @@ def test_emulated_ssd_reads_strided_inputs(emulated):
     D = torch.tensor([0.1, -0.2, 0.3])
     assert not (x.is_contiguous() or dt.is_contiguous()
                 or Bm.is_contiguous() or Cm.is_contiguous())
-    got, L = _emulate(emulated, (x, dt, A, Bm, Cm, D), 64)
+    got, L = emulate_ssd(emulated, (x, dt, A, Bm, Cm, D), 64)
     want = ssd_scan(x, dt, A, Bm, Cm, D, chunk=L)
     np.testing.assert_allclose(_np(got), _np(want), **EMU_TOL)
 
@@ -204,8 +150,8 @@ def test_emulated_ssd_reads_strided_inputs(emulated):
 def test_emulated_ssd_carries_the_state_across_chunks(emulated):
     """The same sequence cut into 1, 4 and 16 chunks gives the same
     output: the carried state holds the earlier chunks exactly."""
-    args = _inputs(1, 256, 2, 32, 32, seed=6)
-    outs = [_emulate(emulated, args, chunk)[0] for chunk in (256, 64, 16)]
+    args = ssd_inputs(1, 256, 2, 32, 32, seed=6)
+    outs = [emulate_ssd(emulated, args, chunk)[0] for chunk in (256, 64, 16)]
     for o in outs[1:]:
         np.testing.assert_allclose(_np(o), _np(outs[0]), **EMU_TOL)
 
@@ -214,9 +160,9 @@ def test_emulated_ssd_underflowing_decays(emulated):
     """Steps of about 8 with |A| up to 4: every decay past a few tokens
     underflows to 0, and the exponent for u > t (not computed) would
     overflow; the output is finite and matches."""
-    args = _inputs(1, 128, 2, 16, 8, seed=4, dt_shift=8.0)
+    args = ssd_inputs(1, 128, 2, 16, 8, seed=4, dt_shift=8.0)
     args[2] = args[2] * 3
-    got, L = _emulate(emulated, args, 64)
+    got, L = emulate_ssd(emulated, args, 64)
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(_np(got), _np(ssd_scan(*args, chunk=L)),
                                **EMU_TOL)
@@ -224,7 +170,7 @@ def test_emulated_ssd_underflowing_decays(emulated):
 
 def test_emulated_ssd_refuses_shapes_it_does_not_take(emulated):
     for P, N in ((65, 8), (16, 129)):
-        args = _inputs(1, 16, 1, P, N)
+        args = ssd_inputs(1, 16, 1, P, N)
         y = torch.empty_like(args[0])
         with pytest.raises(RuntimeError, match="shape not taken"):
             k4.launch(emulated, *args, y, *k4.scratch(args[0], N, 16),
@@ -247,7 +193,7 @@ def _need_card():
 def test_ssd_kernel_matches_plain_on_card(case):
     _need_card()
     B, S, H, P, N, chunk, dt = case
-    args = _inputs(B, S, H, P, N, seed=1, device="cuda",
+    args = ssd_inputs(B, S, H, P, N, seed=1, device="cuda",
                    dtype=getattr(torch, dt))
     before = k4.launches
     got = k4.ssd_kernel(*args, chunk=chunk)

@@ -31,77 +31,36 @@ bf16 for both, so which lands nearer the exact value is chance: on a
 single draw either may, by a bf16 rounding of the folded sum.
 
 The CPU tests compile the emitted bf16 kernels as host C++ (``g++
--DHFAV_EMULATE``, as ``tests/test_torch_emit.py`` does the float32 ones);
-the ``cuda``-marked twin runs the built kernel on the card.  The module
+-DHFAV_EMULATE``: the emulated ``"cuda"`` interpreter of
+``tests/_emulate.py``, its outputs seated as on the card); the
+``cuda``-marked twin runs the built kernel on the card.  The module
 imports no JAX at its top level (the card's machine has none): the tests
 that compare with ``interp_jax`` import it inside.
 """
-import ctypes
 import hashlib
-import json
 import re
-import shutil
 import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from _goldens import golden_path
+from _emulate import ODD_DIM as DIM
+from _emulate import (ACCUMULATING, ISSUE_ROW_CPP, LONG_SUMS, SOURCES,
+                      _golden, _listed, _numpy, _plan, has_accumulator,
+                      host_build, recorded_calls, rel_l2)
+from _emulate import emulator  # noqa: F401 (the emulated K1)
 from _inputs import hydro2d_state
-from repro_torch.core import (ALL_PROGRAMS, PlanUnsupported,
-                              compile_program, from_reference_dict)
-from repro_torch.core.interpreters import (STENCIL_CAPABILITIES,
-                                           InterpreterSpec, assemble,
-                                           get_interpreter,
-                                           register_interpreter,
-                                           unregister_interpreter)
+from repro_torch.core import ALL_PROGRAMS, PlanUnsupported, compile_program
+from repro_torch.core.interpreters import assemble, get_interpreter
 from repro_torch.kernels.stencil2d import kernel as k1
 from repro_torch.kernels.stencil2d.emit import (CallLayout, cap4,
                                                 emit_source)
 
-EMULATE_H = k1.CSRC / "emulate.h"
-#: Odd Ni: rows of an odd width start in turn on and between 4-byte
-#: words, so the bf16 ring's 2-byte heads and tails are copied.
-DIM = {"i": 37, "j": 9, "k": 4, "l": 3}
 BF16_TOL = 2e-2
 #: Gate E: K1's relative L2 error to the exact value may exceed the
 #: plain version's by this factor, or reach one bf16 step.
 GATE_E_FACTOR, GATE_E_FLOOR = 1.25, 2.0 ** -8
-
-#: sha256 (first 16 hex digits) of the float32 sources of each golden
-#: plan's grid calls, concatenated in call order, as the emitter wrote
-#: them before it learned bf16 (but for the row prime each writes into
-#: ``chunk_of``, derived from the plan's reads): the float32 kernels are
-#: unchanged.
-FLOAT32_SOURCES = {
-    "advect4d_halo": "7ce7c25898bc3fae",
-    "cosmo": "6b8c3919fc989f90",
-    "energy3d": "4fe5d08bbb96864c",
-    "heat3d": "3e8e29523f5090df",
-    "heat3d_residual_norm": "568941a62af936da",
-    "heat3d_stage": "157414aaf88c1788",
-    "hydro1d": "cbde5fd94ab9081d",
-    "laplace5": "aba0b8d72a16887f",
-    "laplace_pair": "00ee6bc5ac04ec2a",
-    "normalization": "cb683d8058d17edc",
-    "plane_sum": "4bb673ed3b9a17d0",
-    "pyramid4d": "cc3c970de9888473",
-    "row_sum": "f15f127c6de0e72a",
-    "smooth_norm": "09ebe4017c8136af",
-    "subset_sum": "64aa52bd10b98786",
-}
-
-
-def _golden(name):
-    return from_reference_dict(
-        json.loads(golden_path(name).read_text()))
-
-
-def _plan(name):
-    return compile_program(ALL_PROGRAMS[name](), backend="interp_torch",
-                           device="cpu").kernel_plan
-
 
 def bf16_inputs(name, kplan, rng, dims=DIM):
     """One seeded array per axiom of ``kplan``, rounded to bf16 and held
@@ -118,20 +77,6 @@ def bf16_inputs(name, kplan, rng, dims=DIM):
         a = hydro2d_state(name, ax.array, a)
         out[ax.array] = torch.from_numpy(a).bfloat16().float().numpy()
     return out
-
-
-def rel_l2(got, exact) -> float:
-    """``|got - exact| / |exact|`` in float64 (the absolute distance
-    where ``exact`` is zero)."""
-    g = torch.from_numpy(np.array(got, dtype=np.float64))
-    e = torch.from_numpy(np.array(exact, dtype=np.float64))
-    num = float((g - e).norm())
-    den = float(e.norm())
-    return num / den if den > 0 else num
-
-
-def has_accumulator(kplan) -> bool:
-    return any(call.accs for call in kplan.calls if call.has_grid)
 
 
 def gate_e(got: dict, plain: dict, exact: dict, tag: str) -> dict:
@@ -159,32 +104,6 @@ def gate_r(got: dict, plain: dict, tag: str) -> None:
                                    rtol=BF16_TOL, err_msg=f"{tag}:{k}")
 
 
-def _numpy(out: dict) -> dict:
-    return {k: v.float().cpu().numpy() for k, v in out.items()}
-
-
-def _listed(out):
-    return list(out) if isinstance(out, (list, tuple)) else [out]
-
-
-class recorded_calls:
-    """While active, every K1 launch's ``(layout, launch, inputs,
-    outputs)``: padded, or at their seat for ``layout.seated_outs``."""
-
-    def __enter__(self):
-        self.calls, self.real = [], k1.run_kernel
-
-        def recording(lib, lay, run, args, **kw):
-            out = self.real(lib, lay, run, args, **kw)
-            self.calls.append((lay, run, args, _listed(out)))
-            return out
-        k1.run_kernel = recording
-        return self.calls
-
-    def __exit__(self, *exc):
-        k1.run_kernel = self.real
-
-
 def call_gates(calls, tag: str) -> None:
     """Gates E and R on each recorded K1 call: its outputs (accumulator
     rows before the lane fold) against ``interp_torch``'s call on the
@@ -196,7 +115,7 @@ def call_gates(calls, tag: str) -> None:
         *outer, nj, ni = run.sizes
 
         def values(outs, seated=()):
-            # a seated output (the card's K1) is its goal already
+            # a seated output is its goal already
             return {o.name: (p if k in seated else assemble(
                         call, o, p, nj, ni, tuple(outer), lanes=True)
                     ).float().cpu().numpy()
@@ -238,7 +157,7 @@ def test_cuda_declares_float32_and_bf16_and_refuses_the_rest():
         emit_source(call, dt)
 
 
-@pytest.mark.parametrize("name", sorted(FLOAT32_SOURCES))
+@pytest.mark.parametrize("name", sorted(SOURCES["float32"]))
 def test_float32_sources_are_unchanged(name):
     h = hashlib.sha256()
     for call in _golden(name).calls:
@@ -246,7 +165,7 @@ def test_float32_sources_are_unchanged(name):
             src = emit_source(call)
             assert src == emit_source(call, torch.float32)
             h.update(src.encode())
-    assert h.hexdigest()[:16] == FLOAT32_SOURCES[name]
+    assert h.hexdigest()[:16] == SOURCES["float32"][name]
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
@@ -300,62 +219,7 @@ def test_bf16_layout_counts_two_bytes_an_element():
 # The bf16 ring copy of one row
 # ---------------------------------------------------------------------------
 
-ISSUE_ROW_CPP = r"""
-#include "stencil2d.cuh"
-#include <cmath>
-#include <cstdio>
-#include <cstdlib>
-// Copy a row of n bf16 values that starts `off` elements past a 16-byte
-// boundary into a window row at the same offset.  The row is its
-// tensor's first (nothing before it to borrow) or follows a row of
-// off + 8 values; the tensor ends where its allocation ends (ASan sees a
-// read past it), and elements before it hold a sentinel that no copy may
-// bring into the window.
-int main() {
-  const unsigned short sentinel = 0x4b00, marker = 0x1234;
-  int bad = 0;
-  for (int n = 1; n <= 20; ++n)
-    for (int off = 0; off < 8; ++off)
-      for (int second = 0; second < 2; ++second) {
-        const int before = second ? 0 : off;
-        const int len = second ? off + 8 + n : n;
-        void* raw = nullptr;
-        if (posix_memalign(&raw, 16, (before + len) * 2)) return 2;
-        __nv_bfloat16* const all = static_cast<__nv_bfloat16*>(raw);
-        for (int c = 0; c < before; ++c) all[c].x = sentinel;
-        __nv_bfloat16* const t = all + before;
-        for (int c = 0; c < len; ++c) t[c] = __float2bfloat16(c + 1.0f);
-        const __nv_bfloat16* const src = t + len - n;
-        const int sh = hfav::shift8(src);
-        if (sh != off) ++bad;
-        alignas(16) __nv_bfloat16 win[64];
-        for (auto& v : win) v.x = marker;
-        blockDim.x = 1;
-        threadIdx.x = 0;
-        hfav::issue_row(win + sh, src, n, 1, t);
-        hfav::commit();
-        // before the wait every copied element is undefined (NaN) but
-        // the one a plain store moved (the tensor's odd first element)
-        for (int c = 0; c < n; ++c) {
-          const bool plain = !second && c == 0 && (sh & 1);
-          if (!plain && !std::isnan(__bfloat162float(win[sh + c]))) ++bad;
-        }
-        hfav::wait_ring_n(0);
-        for (int c = 0; c < n; ++c)
-          if (win[sh + c].x != src[c].x) ++bad;
-        for (int c = 0; c < 64; ++c) {
-          if (win[c].x == sentinel) ++bad;  // read before the tensor
-          // written only in the row and one margin element each side
-          if ((c < sh - 1 || c > sh + n) && win[c].x != marker) ++bad;
-        }
-        std::free(raw);
-      }
-  std::printf("%d\n", bad);
-}
-"""
-
-
-def test_emulated_bf16_row_copy_heads_tails_and_tensor_bounds(tmp_path):
+def test_emulated_bf16_row_copy_heads_tails_and_tensor_bounds():
     """``issue_row`` for bf16 rows of 1-20 values at every offset mod 16
     bytes, as a tensor's first row and as a later one: after the wait the
     window holds the row, before it every copied element is undefined
@@ -363,84 +227,10 @@ def test_emulated_bf16_row_copy_heads_tails_and_tensor_bounds(tmp_path):
     its two margin elements, and no copy reads outside the tensor (before
     it: a sentinel; past its end: AddressSanitizer, the tensor ending
     where its allocation does)."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++)")
-    cpp = tmp_path / "row.cpp"
-    cpp.write_text(ISSUE_ROW_CPP)
-    exe = tmp_path / "row"
-    flags = ["-fsanitize=address"]
-    out = subprocess.run(["g++", "-std=c++20", "-pthread", "-DHFAV_EMULATE",
-                          *flags, f"-I{k1.CSRC}", "-o", str(exe), str(cpp)],
-                         capture_output=True, text=True)
-    assert out.returncode == 0, out.stderr[-3000:]
+    exe = host_build(ISSUE_ROW_CPP, ("-fsanitize=address",), program=True)
     run = subprocess.run([str(exe)], capture_output=True, text=True)
     assert run.returncode == 0, run.stderr[-3000:]
     assert run.stdout.split() == ["0"]
-
-
-# ---------------------------------------------------------------------------
-# The emitted bf16 kernels, compiled as host C++
-# ---------------------------------------------------------------------------
-
-_EMU_LIBS: dict = {}
-
-
-def _emulated(call, dtype, build_dir):
-    src = emit_source(call, dtype)
-    digest = hashlib.sha256(src.encode() + k1.HEADER.read_bytes()
-                            + EMULATE_H.read_bytes()).hexdigest()[:24]
-    if digest not in _EMU_LIBS:
-        cpp = build_dir / f"{digest}.cpp"
-        so = build_dir / f"{digest}.so"
-        cpp.write_text(src)
-        out = subprocess.run(
-            ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-DHFAV_EMULATE", f"-I{k1.CSRC}", "-o", str(so), str(cpp)],
-            capture_output=True, text=True)
-        assert out.returncode == 0, out.stderr[-4000:]
-        lib = ctypes.CDLL(str(so))
-        k1._bind(lib)
-        _EMU_LIBS[digest] = lib
-    return _EMU_LIBS[digest]
-
-
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
-    """The emulated K1 as an interpreter of float32 and bf16, its outputs
-    and scratch starting as NaN (a step no block writes shows)."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    build_dir = tmp_path_factory.mktemp("emulated_bf16_kernels")
-
-    def build_call(call, sizes, dtype, *, device=None, chunk=None,
-                   plane_chunk=None):
-        lay = CallLayout(call, dtype)
-        lib = _emulated(call, dtype, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(lib), chunk,
-                             plane_chunk=plane_chunk)
-
-        def fn(*args):
-            for t in args:
-                assert t.dtype == dtype
-            return k1.run_kernel(lib, lay, run, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    def poisoned(lay, run, device):
-        outs, scratch = alloc_outputs(lay, run, device)
-        for t in outs + [scratch]:
-            t.fill_(float("nan"))
-        return outs, scratch
-
-    alloc_outputs = k1.alloc_outputs
-    k1.alloc_outputs = poisoned
-    register_interpreter(InterpreterSpec(
-        "_emulated_cuda_bf16", build_call, STENCIL_CAPABILITIES,
-        dtypes=frozenset({torch.float32, torch.bfloat16}),
-        flags=frozenset({"chunk", "plane_chunk"})))
-    yield "_emulated_cuda_bf16"
-    unregister_interpreter("_emulated_cuda_bf16")
-    k1.alloc_outputs = alloc_outputs
 
 
 _REFS: dict = {}
@@ -513,13 +303,6 @@ def test_emulated_bf16_kernel_gates(name, chunk, emulator):
     _check(name, _through(emulator, name, chunk=chunk),
            f"{name}/chunk={chunk}")
     assert k1.launches > before
-
-
-#: (k = 4, l = 3: the plane stencils keep an interior of 2 planes)
-LONG_SUMS = {"j": 512, "i": 37, "k": 4, "l": 3}
-#: The programs with an accumulator.
-ACCUMULATING = ("energy3d", "heat3d_residual_norm", "normalization",
-                "plane_sum", "smooth_norm", "subset_sum")
 
 
 def test_accumulating_programs_are_listed():

@@ -28,53 +28,25 @@ The module imports no JAX at its top level: the tests that compare with
 import ctypes
 import hashlib
 import re
-import shutil
 import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from _emulate import ODD_DIM as DIM
+from _emulate import (ACCUMULATING, ISSUE_ROW_CPP, LONG_SUMS, SOURCES,
+                      _golden, _listed, _numpy, _plan, has_accumulator,
+                      host_build, recorded_calls, rel_l2)
+from _emulate import emulator  # noqa: F401 (the emulated K1)
 from _inputs import hydro2d_state
 from repro_torch.core import ALL_PROGRAMS, compile_program
-from repro_torch.core.interpreters import (STENCIL_CAPABILITIES,
-                                           InterpreterSpec, assemble,
-                                           get_interpreter,
-                                           register_interpreter,
-                                           unregister_interpreter)
+from repro_torch.core.interpreters import assemble, get_interpreter
 from repro_torch.kernels.stencil2d import kernel as k1
 from repro_torch.kernels.stencil2d.emit import CallLayout, emit_source
-from test_torch_stencil_bf16 import (ACCUMULATING, DIM, ISSUE_ROW_CPP,
-                                     LONG_SUMS, _emulated, _golden, _listed,
-                                     _numpy, _plan, has_accumulator,
-                                     recorded_calls, rel_l2)
 
 FP16_TOL = 2e-2 / 8
 GATE_E_FACTOR, GATE_E_FLOOR = 1.25, 2.0 ** -11
-
-#: sha256 (first 16 hex digits) of the bf16 sources of each golden
-#: plan's grid calls, concatenated in call order, as the emitter wrote
-#: them before it learned float16 (but for the row prime each writes into
-#: ``chunk_of``, derived from the plan's reads): the bf16 kernels are
-#: unchanged.
-BF16_SOURCES = {
-    "advect4d_halo": "f5a24bd69129e665",
-    "cosmo": "c5bfe858a28ebf1f",
-    "energy3d": "4ca7d2b85d41aa5d",
-    "heat3d": "c328b211a5d0e059",
-    "heat3d_residual_norm": "cd5ee90b0f95507a",
-    "heat3d_stage": "5820e93d5ad0dac2",
-    "hydro1d": "62f7765e1fc99336",
-    "laplace5": "0575ca5f04a61e10",
-    "laplace_pair": "3db66cdc01f6d0c6",
-    "normalization": "44f1c13ca358d3e3",
-    "plane_sum": "df66c2695b543c98",
-    "pyramid4d": "760327eb3d16a679",
-    "row_sum": "32da988ec0e7c18f",
-    "smooth_norm": "6d13f409b45efb93",
-    "subset_sum": "903058bcf19449ec",
-}
-
 
 def fp16_inputs(name, kplan, rng, dims=DIM):
     """One seeded array per axiom of ``kplan``, the draws of the bf16
@@ -143,7 +115,7 @@ def call_gates(calls, tag: str) -> None:
         *outer, nj, ni = run.sizes
 
         def values(outs, seated=()):
-            # a seated output (the card's K1) is its goal already
+            # a seated output is its goal already
             return {o.name: (p if k in seated else assemble(
                         call, o, p, nj, ni, tuple(outer), lanes=True)
                     ).float().cpu().numpy()
@@ -164,13 +136,13 @@ def call_gates(calls, tag: str) -> None:
 # The sources
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(BF16_SOURCES))
+@pytest.mark.parametrize("name", sorted(SOURCES["bfloat16"]))
 def test_bf16_sources_are_unchanged(name):
     h = hashlib.sha256()
     for call in _golden(name).calls:
         if call.has_grid:
             h.update(emit_source(call, torch.bfloat16).encode())
-    assert h.hexdigest()[:16] == BF16_SOURCES[name]
+    assert h.hexdigest()[:16] == SOURCES["bfloat16"][name]
 
 
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
@@ -228,20 +200,11 @@ extern "C" void to_half(const float* f, unsigned short* h, int n) {
 
 
 @pytest.fixture(scope="module")
-def host_half(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++)")
-    d = tmp_path_factory.mktemp("host_half")
-    (d / "half.cpp").write_text(HALF_CPP)
-    out = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                          "-DHFAV_EMULATE", f"-I{k1.CSRC}", "-o",
-                          str(d / "half.so"), str(d / "half.cpp")],
-                         capture_output=True, text=True)
-    assert out.returncode == 0, out.stderr[-3000:]
-    lib = ctypes.CDLL(str(d / "half.so"))
-    for fn in (lib.to_float, lib.to_half):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    return lib
+def host_half():
+    def bind(lib):
+        for fn in (lib.to_float, lib.to_half):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    return host_build(HALF_CPP, bind=bind)
 
 
 def _halves(bits: np.ndarray) -> np.ndarray:
@@ -289,22 +252,16 @@ def test_host_half_rounds_a_float_sweep_as_torch(host_half):
     assert np.isnan(_halves(out[~ok])).all()
 
 
-def test_emulated_float16_row_copy_heads_tails_and_tensor_bounds(tmp_path):
+def test_emulated_float16_row_copy_heads_tails_and_tensor_bounds():
     """The bf16 test's row copy (rows of 1-20 values at every offset mod
     16 bytes, as a tensor's first row and a later one, under
     AddressSanitizer) for ``__half`` rows: the same template, with a
     sentinel that is no value of the row (0x4b00 is 14.0 in float16)."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++)")
-    cpp = tmp_path / "row.cpp"
-    cpp.write_text(ISSUE_ROW_CPP.replace("__nv_bfloat16", "__half").replace(
-        "__float2bfloat16", "__float2half_rn").replace(
-        "__bfloat162float", "__half2float").replace("0x4b00", "0x7bff"))
-    exe = tmp_path / "row"
-    out = subprocess.run(["g++", "-std=c++20", "-pthread", "-DHFAV_EMULATE",
-                          "-fsanitize=address", f"-I{k1.CSRC}", "-o",
-                          str(exe), str(cpp)], capture_output=True, text=True)
-    assert out.returncode == 0, out.stderr[-3000:]
+    exe = host_build(ISSUE_ROW_CPP.replace("__nv_bfloat16", "__half")
+                     .replace("__float2bfloat16", "__float2half_rn")
+                     .replace("__bfloat162float", "__half2float")
+                     .replace("0x4b00", "0x7bff"), ("-fsanitize=address",),
+                     program=True)
     run = subprocess.run([str(exe)], capture_output=True, text=True)
     assert run.returncode == 0, run.stderr[-3000:]
     assert run.stdout.split() == ["0"]
@@ -313,46 +270,6 @@ def test_emulated_float16_row_copy_heads_tails_and_tensor_bounds(tmp_path):
 # ---------------------------------------------------------------------------
 # The emitted float16 kernels, compiled as host C++
 # ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
-    """The emulated K1 as an interpreter of float32 and float16, its
-    outputs and scratch starting as NaN (a step no block writes
-    shows)."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to emulate the kernels")
-    build_dir = tmp_path_factory.mktemp("emulated_float16_kernels")
-
-    def build_call(call, sizes, dtype, *, device=None, chunk=None,
-                   plane_chunk=None):
-        lay = CallLayout(call, dtype)
-        lib = _emulated(call, dtype, build_dir)
-        run = lay.concretize(tuple(sizes), k1.occupancy(lib), chunk,
-                             plane_chunk=plane_chunk)
-
-        def fn(*args):
-            for t in args:
-                assert t.dtype == dtype
-            return k1.run_kernel(lib, lay, run, args, threads=3,
-                                 stream=None)
-        return fn, run.steps_j
-
-    def poisoned(lay, run, device):
-        outs, scratch = alloc_outputs(lay, run, device)
-        for t in outs + [scratch]:
-            t.fill_(float("nan"))
-        return outs, scratch
-
-    alloc_outputs = k1.alloc_outputs
-    k1.alloc_outputs = poisoned
-    register_interpreter(InterpreterSpec(
-        "_emulated_cuda_float16", build_call, STENCIL_CAPABILITIES,
-        dtypes=frozenset({torch.float32, torch.float16}),
-        flags=frozenset({"chunk", "plane_chunk"})))
-    yield "_emulated_cuda_float16"
-    unregister_interpreter("_emulated_cuda_float16")
-    k1.alloc_outputs = alloc_outputs
-
 
 _REFS: dict = {}
 
