@@ -76,10 +76,11 @@ Phases, each of which raises on failure:
    ``pallas_call``), bit for bit against four single calls, timed both
    ways (end to end, and the batched launches' device time against the
    four single calls' beside the batch's byte bound); PlanServe on K1
-   with 48 requests of mixed sizes over laplace5, hydro1d, normalization
-   and cosmo, one launch per grid ``CallPlan`` for each micro-batch
-   (counted and printed), every answer bit for bit against a
-   per-example K1 call at its true size, with its metrics; then two
+   (``device="cuda"``) with 48 requests of mixed sizes over laplace5,
+   hydro1d, normalization and cosmo, one launch per grid ``CallPlan``
+   for each micro-batch (counted and printed), every answer bit for bit
+   against a per-example K1 call at its true size, with its metrics and
+   the requests whose batch ran at their own size or padded; then two
    spawned workers over one
    plan-cache directory, cold and then warm, their answers checked the
    same way;
@@ -1076,6 +1077,7 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
     from repro_torch.kernels.stencil2d import bench
     from repro_torch.kernels.stencil2d import kernel as k1
     from repro_torch.kernels.stencil2d.emit import SMEM_LIMIT
+    from repro_torch import obs
     from repro_torch.serve.plans import (PlanServe, bucket_sizes,
                                          pad_to_bucket, request_sizes,
                                          unpad_outputs)
@@ -1250,7 +1252,8 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
     clear_compile_cache()
     base = k1.launches
     micro = []  # (program, requests, K1 launches) of each micro-batch
-    with PlanServe(progs, max_batch=SERVE_MAX_BATCH) as srv:
+    gathered = {}  # id of a request's arrays -> its batch ran gathered
+    with PlanServe(progs, device="cuda", max_batch=SERVE_MAX_BATCH) as srv:
         if srv.backend != "cuda":
             raise AssertionError(f"PlanServe's default backend on the card "
                                  f"is {srv.backend!r}")
@@ -1258,8 +1261,11 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
 
         def counted(key, batch, bid):  # the batcher's thread, one at a time
             before = k1.launches
+            g0 = obs.counter("serve.gathered")
             execute(key, batch, bid)
             micro.append((key[0], len(batch), k1.launches - before))
+            for p in batch:
+                gathered[id(p.arrays)] = obs.counter("serve.gathered") > g0
 
         srv._execute = counted
         tickets = [(n, a, srv.submit(n, a)) for n, a in reqs]
@@ -1289,8 +1295,12 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
     print(f"planserve {len(answers)} requests over {SERVE_PROGRAMS}: every "
           f"answer bit-identical to a per-example K1 call at its true size; "
           f"K1 launches={launches}", flush=True)
+    n_gathered = sum(1 for _, a, _ in answers if gathered[id(a)])
     print(f"planserve metrics: requests={snap['requests']} batches="
-          f"{snap['batches']} requests_per_s={snap['requests_per_s']:.2f} "
+          f"{snap['batches']} (requests in a batch run at their own size "
+          f"{n_gathered}, padded to a bucket "
+          f"{len(answers) - n_gathered}) "
+          f"requests_per_s={snap['requests_per_s']:.2f} "
           f"latency_ms p50={snap['latency_ms']['p50']:.2f} "
           f"p99={snap['latency_ms']['p99']:.2f} queue_wait_ms "
           f"p50={snap['queue_wait_ms']['p50']:.2f} batch_size mean="
@@ -1300,22 +1310,29 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
           f"{snap['compiles']['total_ms']:.0f} ms) buckets="
           f"{len(snap['buckets'])}  card: {smi}", flush=True)
     # the kernels line's entry: the first request of each program, as
-    # the server ran it (padded to its bucket), through K1 and the plain
+    # its micro-batch ran it (at its own size where the batch's members
+    # shared it, else padded to its bucket), through K1 and the plain
     # version
     firsts = {}
     for n, a, _ in answers:
         firsts.setdefault(n, a)
     stats = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    ran = {}
     for n, a in firsts.items():
         prog = progs[n]
-        bucket = bucket_sizes(prog, request_sizes(prog, a),
-                              srv._quantum[n])  # as the server bucketed it
-        padded = pad_to_bucket(prog, a, bucket, device=dev)
+        sizes = request_sizes(prog, a)
+        if gathered[id(a)]:
+            ran[n] = "own size"
+            x = a
+        else:
+            ran[n] = "padded"
+            bucket = bucket_sizes(prog, sizes,
+                                  srv._quantum[n])  # as the server bucketed it
+            x = pad_to_bucket(prog, a, bucket, device=dev)
         gen = compile_program(prog, backend="cuda")
         plain = compile_program(prog, backend="interp_torch", device=dev)
-        sizes = request_sizes(prog, a)
         s = timed_against_plain(
-            n, lambda x: gen.fn(**x), lambda x: plain.fn(**x), [padded],
+            n, lambda x: gen.fn(**x), lambda x: plain.fn(**x), [x],
             flush, rate, "planserve",
             trim=lambda out: unpad_outputs(prog, out, sizes))
         stats["max_abs_err"] = max(stats["max_abs_err"], s["max_abs_err"])
@@ -1330,7 +1347,9 @@ def compiler_phase(dev, flush, rate: float, smi: str) -> list:
         "micro_batches": len(micro),
         "batch": max(size for _, size, _ in micro),
         "launches_per_micro_batch": sorted({got for _, _, got in micro}),
-        "timed": "the first request of each program, padded to its bucket",
+        "timed": "the first request of each program, as its micro-batch "
+                 "ran it: at its own size or padded to its bucket",
+        "timed_as": ran,
         "requests_per_s": snap["requests_per_s"],
         "latency_ms_p50": snap["latency_ms"]["p50"],
         "latency_ms_p99": snap["latency_ms"]["p99"]})

@@ -66,8 +66,7 @@ def summed_launch(emit, k1, call, sizes, seated, sms, batch):
                 best = (key, run)
         run = best[1]
         if batch:
-            run = k1.batch_launch(lay, run, k1.input_shapes(call, sizes),
-                                  batch, sms)
+            run = k1.batch_launch(lay, run, batch, sms)
         return lib, lay, run
     finally:
         emit.CallLayout._row_reach = real

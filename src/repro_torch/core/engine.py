@@ -596,8 +596,9 @@ class BatchedGenerated:
     :class:`~repro_torch.core.planner.PallasGenerated` from
     :func:`compile_program`) with a batched callable: ``fn(arrays)``
     takes a dict of input arrays each carrying one extra *leading* batch
-    axis (the same batch width on every input) and returns the
-    per-store output dict with the same leading axis.  Built by
+    axis, or each the sequence of its examples' tensors (the same batch
+    width on every input), and returns the per-store output dict with a
+    leading batch axis.  Built by
     :func:`compile_batched`; PlanServe (:mod:`repro_torch.serve.plans`)
     executes every micro-batch through one of these."""
 
@@ -629,8 +630,13 @@ def compile_batched(
     host half over the whole batch and **one launch of the kernel per
     grid** :class:`~repro_torch.core.plan.CallPlan`, whose grid holds
     every example's blocks (the reference's ``pallas_call`` batching
-    rule gives its grid a leading batch axis).  Each example's bits are
-    its single call's.  A failed build or launch raises; nothing falls
+    rule gives its grid a leading batch axis).  An input given as the
+    sequence of its examples' tensors (of one shape, the dtype and the
+    device, contiguous) is read by the kernel where each tensor lies,
+    through a table of their addresses, unless the host half reads it
+    itself (:func:`~repro_torch.core.interpreters.execute_plan`).  Each
+    example's bits are its single call's.  A failed build or launch
+    raises; nothing falls
     back to running the examples one by one.  Elsewhere (the plain
     ``"interp_torch"`` and the ``"torch"`` emitter, the batched kernel's
     plain versions) the batch is a loop over the examples, each through

@@ -29,7 +29,9 @@ declares ``seats`` (the CUDA kernel) writes each ``external`` output
 :func:`seatable` admits straight into its goal array instead, and the
 host half takes that array as it is.  An interpreter that
 declares a ``build_batched`` runs a batch of examples (a leading batch
-axis on every array) through one host half and one launch of each call
+axis on every array, or each array as the sequence of its examples'
+tensors, read where they lie) through one host half and one launch of
+each call
 (:func:`execute_plan` with ``batched=True``): the counterpart of the
 reference's ``vmap`` of its host half, whose batching rule turns the
 Pallas call into one ``pallas_call`` with a leading batch grid axis.
@@ -83,7 +85,8 @@ class InterpreterSpec:
 
     ``build_batched`` (optional, the same signature as ``build_call``)
     concretizes a call over a batch: its ``fn`` takes every input with
-    one leading batch axis and returns every padded output with it, each
+    one leading batch axis, or as the sequence of its examples' tensors,
+    and returns every padded output with a leading batch axis, each
     example's bits those of ``build_call``'s ``fn`` on that example.  The
     CUDA kernel declares one (one launch a batch); an interpreter without
     one runs a batch example by example
@@ -287,10 +290,16 @@ def require_hazard_free(call: CallPlan) -> None:
 
 def resolve_device(device=None) -> torch.device:
     """The device a compiled program runs on: ``device`` when given,
-    else the current CUDA device.  Without CUDA, ``device=None`` raises:
-    the port never falls back to the CPU unless asked to."""
+    else the current CUDA device.  A ``"cuda"`` without an index is the
+    current CUDA device too, with its index, so it compares equal to the
+    device of the tensors made on it.  Without CUDA, ``device=None``
+    raises: the port never falls back to the CPU unless asked to."""
     if device is not None:
-        return torch.device(device)
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None \
+                and torch.cuda.is_available():
+            return torch.device("cuda", torch.cuda.current_device())
+        return dev
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on "
@@ -304,6 +313,21 @@ def as_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return torch.as_tensor(x, dtype=dtype, device=device).contiguous()
+
+
+def _examples(name: str, seq, dtype, device) -> tuple:
+    """A batch's input ``name`` given as the sequence of its examples'
+    tensors, checked: one shape (the first example's), ``dtype`` and
+    ``device``, each contiguous; raises ``ValueError`` otherwise."""
+    first = seq[0]
+    for b, t in enumerate(seq):
+        if not (isinstance(t, torch.Tensor) and t.shape == first.shape
+                and t.dtype == dtype and t.device == device
+                and t.is_contiguous()):
+            raise ValueError(f"input {name!r}: example {b} is not a "
+                             f"contiguous {dtype} tensor on {device} of "
+                             f"the first example's shape")
+    return tuple(seq)
 
 
 def _lane_permute(arr, p, inverse: bool = False):
@@ -479,14 +503,21 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
     ``plan.reseated`` (:mod:`repro_torch.obs`).
 
     ``batched=True`` builds the host half of a batch: every external
-    array carries one leading batch axis (sizes come from the rest of
-    its shape), and the host half runs once over the batch -- the
-    arrays' moves, the lane passes, the host steps (0-dim bodies, so
-    elementwise over the examples) and the output assembly -- with one
-    call of each :class:`CallPlan`'s ``build_batched`` callable, and
-    returns every goal with the leading axis, each example's bits those
-    of the unbatched host half on it.  Raises ``ValueError`` for an
-    interpreter that declares no ``build_batched``."""
+    array carries one leading batch axis, or is the sequence of its
+    examples' tensors (one shape, ``dtype`` and ``device``, each
+    contiguous, else ``ValueError``); sizes come from the first example's
+    shape.
+    The host half runs once over the batch -- the arrays' moves, the lane
+    passes, the host steps (0-dim bodies, so elementwise over the
+    examples) and the output assembly -- with one call of each
+    :class:`CallPlan`'s ``build_batched`` callable, and returns every
+    goal with the leading axis, each example's bits those of the
+    unbatched host half on it.  A sequence goes to the calls that read
+    it as it is, so the kernel reads each example where it lies; only
+    where the host half itself reads the array (a lane pass, a host
+    step, a scalar input, a goal) is it stacked, once.  Raises
+    ``ValueError`` for an interpreter that declares no
+    ``build_batched``."""
     spec = get_interpreter(interpreter)
     check_capabilities(spec, kplan, dtype)
     if batched and spec.build_batched is None:
@@ -494,7 +525,6 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
                          f"build_call")
     build = spec.build_batched if batched else spec.build_call
     seat = {"seated": True} if spec.seats else {}
-    lead = 1 if batched else 0
     unknown = set(options) - spec.flags
     if unknown:
         raise TypeError(f"interpreter {spec.name!r} takes no build "
@@ -505,6 +535,14 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
     jdim = kplan.loop_order[-2]
     outer_dims = kplan.loop_order[:-2]
     input_names = sorted({ax.array for ax in kplan.axioms})
+    # the arrays the host half reads itself: a batch given as its
+    # examples' tensors is stacked for them
+    host_reads = ({p.array for p in kplan.pre_passes + kplan.post_passes}
+                  | {n for cp in kplan.calls
+                     for hs in cp.host_pre + cp.host_post for n in hs.reads}
+                  | {i.name for cp in kplan.calls for i in cp.inputs
+                     if i.scalar}
+                  | {var for _, var in kplan.goal_outputs})
     # each call's build_call runs once per problem size
     built: dict[tuple, object] = {}
 
@@ -515,23 +553,29 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
     def run(arrays):
         sizes: dict[str, int] = {}
         for ax in kplan.axioms:
-            arr = arrays[ax.array]
+            shape = arrays[ax.array][0].shape if batched \
+                else arrays[ax.array].shape
             ext = {d: (sym, lo, hi) for d, sym, lo, hi in ax.extents}
             for axis, d in enumerate(ax.dims):
                 e = ext.get(d)
                 if e is not None and e[0] not in sizes:
-                    sizes[e[0]] = arr.shape[lead + axis] - (e[2] - e[1])
+                    sizes[e[0]] = shape[axis] - (e[2] - e[1])
         nj = sizes[dim_sym[jdim]]
         ni = sizes[dim_sym[inner]]
         n_outs = tuple(sizes[dim_sym[d]] for d in outer_dims)
         with obs.span("plan.inputs"):
-            env: dict[str, torch.Tensor] = {
-                name: as_tensor(arrays[name], dtype, device)
-                for name in input_names
-            }
+            env: dict = {}
+            for name in input_names:
+                arr = arrays[name]
+                if batched and isinstance(arr, (list, tuple)):
+                    arr = _examples(name, arr, dtype, device)
+                    env[name] = torch.stack(arr) if name in host_reads \
+                        else arr
+                else:
+                    env[name] = as_tensor(arr, dtype, device)
             for p in kplan.pre_passes:
                 env[p.array] = _lane_permute(env[p.array], p)
-        batch = (env[input_names[0]].shape[0],) if batched else ()
+        batch = (len(arrays[input_names[0]]),) if batched else ()
         for ci, cp in enumerate(kplan.calls):
             for hs in cp.host_pre:
                 with obs.span("plan.host"):
@@ -546,7 +590,9 @@ def execute_plan(kplan: KernelPlan, *, interpreter: str = "cuda",
                 with obs.span("plan.inputs"):
                     args = []
                     for ispec in cp.inputs:
-                        v = as_tensor(env[ispec.name], dtype, device)
+                        v = env[ispec.name]
+                        if not isinstance(v, tuple):
+                            v = as_tensor(v, dtype, device)
                         if ispec.scalar:
                             v = v.reshape(batch + (1, 1))
                         args.append(v)

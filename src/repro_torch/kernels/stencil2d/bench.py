@@ -149,9 +149,11 @@ def call_bytes(lay, run, args) -> int:
     type (``kernel.output_shapes``: a seated output's goal, else the
     reference contract's -- row outputs ``(*grid, steps_j, Ni)``,
     accumulators ``(*grid[:n_kept], w)``, not the kernel's per-chunk
-    partial rows); a batched launch's for each of its examples."""
+    partial rows); a batched launch's for each of its examples (whose
+    inputs ``args`` holds as sequences of the examples' tensors)."""
     out = sum(math.prod(s) for s in k1.output_shapes(lay, run))
-    return sum(t.numel() * t.element_size() for t in args) \
+    ins = [t for a in args for t in a] if run.batch else args
+    return sum(t.numel() * t.element_size() for t in ins) \
         + lay.itemsize * out * max(run.batch, 1)
 
 
@@ -162,7 +164,7 @@ def kernel_ms(record, flush) -> float:
     ``kernel.launches``)."""
     lib, lay, run, args = record
     _, tensors = k1.launch_tensors(lay, run, args)
-    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     return device_ms(lambda: k1.launch(lib, run, tensors, threads=run.threads,
                                        stream=stream), flush)
 

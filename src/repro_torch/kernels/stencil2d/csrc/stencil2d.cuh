@@ -458,18 +458,23 @@ __device__ __forceinline__ float* fast_scratch(float* smem, float* gscratch,
 
 // A batched launch runs the blocks of a single call once for each
 // example, example by example (the outermost factor of the grid).  Its
-// parameters are a single call's, each pointer at the first example,
-// followed by the bytes each pointer advances from one example to the
-// next; this gives example `ex`'s: every input, output, scratch and
-// ticket of a single call on that example.
-template <int ND, int NP, int NB, typename T>
+// parameters are a single call's but for the pointers: each of the NI
+// inputs' points at that input's row of a table of addresses, one an
+// example, so an example's inputs stay wherever its caller holds them;
+// each of the others (outputs, scratch, tickets: the launch's own)
+// points at the first example's, and its bytes from one example to the
+// next follow the size parameters.  This gives example `ex`'s: every
+// input, output, scratch and ticket of a single call on that example.
+template <int ND, int NI, int NP, int NB, typename T>
 __device__ __forceinline__ Params<NP, ND, T> example(
     const Params<NP, NB, T>& batch, long long ex) {
-  static_assert(NB == ND + NP, "one stride a pointer");
+  static_assert(NB == ND + NP - NI, "one stride a pointer of the launch");
   Params<NP, ND, T> e;
-  for (int i = 0; i < NP; ++i)
+  for (int i = 0; i < NI; ++i)
+    e.p[i] = reinterpret_cast<T* const*>(batch.p[i])[ex];
+  for (int i = NI; i < NP; ++i)
     e.p[i] = reinterpret_cast<T*>(reinterpret_cast<char*>(batch.p[i]) +
-                                  ex * batch.d[ND + i]);
+                                  ex * batch.d[ND + i - NI]);
   for (int i = 0; i < ND; ++i) e.d[i] = batch.d[i];
   return e;
 }

@@ -857,10 +857,12 @@ def emit_source(call: CallPlan, dtype="float32", batched: bool = False,
     ``batched=True`` gives the kernel of a batch of examples in one
     launch: the blocks of a single call once for each example, the
     example the outermost factor of the grid.  Its parameters are a
-    single call's followed by the bytes each pointer advances from one
-    example to the next (``hfav::example``); each example's blocks run
-    the single call's code on that example's operands, global scratch
-    and fold tickets, so each example's bits are its single call's.
+    single call's, but that each input's pointer is that input's row of
+    a table of the examples' addresses, followed by the bytes each other
+    pointer (outputs, scratch, tickets) advances from one example to the
+    next (``hfav::example``); each example's blocks run the single
+    call's code on that example's operands, global scratch and fold
+    tickets, so each example's bits are its single call's.
 
     ``seated=True`` stores each output of ``CallLayout(call, dtype,
     True).seated_outs`` in its goal array, ``(*osz, nj, ni)``, where the
@@ -983,7 +985,8 @@ def emit_source(call: CallPlan, dtype="float32", batched: bool = False,
     w(f"#define HFAV_NP {lay.n_ptrs}")
     w(f"#define HFAV_ND {len(lay.int_names)}")
     if batched:
-        w("#define HFAV_NB (HFAV_ND + HFAV_NP)")
+        w(f"#define HFAV_NI {nin}")
+        w("#define HFAV_NB (HFAV_ND + HFAV_NP - HFAV_NI)")
     w("")
     for k in sorted(bodies):
         w(bodies[k])
@@ -1000,7 +1003,7 @@ def emit_source(call: CallPlan, dtype="float32", batched: bool = False,
         w(f"  const long long ex = blockIdx.x / PB.d["
           f"{lay.int_names.index('nblocks')}];")
         w(f"  const hfav::Params<HFAV_NP, HFAV_ND{etype}> P = "
-          f"hfav::example<HFAV_ND>(PB, ex);")
+          f"hfav::example<HFAV_ND, HFAV_NI>(PB, ex);")
     for k, name in enumerate(lay.int_names):
         w(f"  const long long {name} = P.d[{k}];")
     # the block within its example

@@ -45,7 +45,10 @@ batching rule gives the Pallas grid a leading batch axis): a second
 source per call and dtype (``emit_source(..., batched=True)``) runs a
 single call's blocks once for each example, each on its own operands,
 global scratch and fold tickets, at the single call's chunking, so each
-example's bits are its single call's.
+example's bits are its single call's.  Its inputs are read through a
+table of the examples' addresses (:func:`input_table`), so the examples
+may be slices of one stacked tensor or each a tensor of its own, where
+the caller holds it; its outputs are one stacked tensor.
 
 The host half (:func:`~repro_torch.core.interpreters.execute_plan`) asks
 for seated outputs (``seated=True``; the interpreter declares ``seats``):
@@ -270,32 +273,47 @@ def tickets(lay: CallLayout, device, n: int,
     return _TICKETS[key]
 
 
+def input_table(args, device) -> torch.Tensor:
+    """The table of a batched launch's inputs: one row an input of
+    ``args`` (each a sequence of the examples' tensors), holding each
+    example's address (int64, on ``device``); the kernel finds example
+    ``ex``'s input ``i`` at row ``i``, column ``ex`` (``hfav::example``).
+    On the card it is filled in pinned host memory and copied on the
+    current stream, so nothing waits for the device (the caching host
+    allocator keeps the pinned block until the copy has run)."""
+    table = torch.tensor([[t.data_ptr() for t in members]
+                          for members in args], dtype=torch.int64,
+                         pin_memory=device.type == "cuda")
+    return table.to(device, non_blocking=True)
+
+
 def launch_tensors(lay: CallLayout, run, args):
     """``(outputs, every tensor of a launch in kernel order)``: the
-    inputs, freshly allocated outputs and scratch, and the tickets."""
-    dev = args[0].device
+    inputs (in a batched launch, :func:`input_table`'s rows), freshly
+    allocated outputs and scratch, and the tickets."""
+    dev = (args[0][0] if run.batch else args[0]).device
     outs, scratch = alloc_outputs(lay, run, dev)
-    return outs, list(args) + outs + [
+    ins = list(input_table(args, dev)) if run.batch else list(args)
+    return outs, ins + outs + [
         scratch, tickets(lay, dev, run.tickets, batched=bool(run.batch))]
 
 
-def batch_launch(lay: CallLayout, run: Launch, in_shapes, batch: int,
+def batch_launch(lay: CallLayout, run: Launch, batch: int,
                  sms: int = H100_SMS) -> Launch:
     """The launch of the batched kernel over ``batch`` examples of the
     single call ``run``: its blocks once for each example, its size
-    parameters followed by the bytes each pointer (inputs of
-    ``in_shapes``, outputs, scratch, tickets) advances from one example to
-    the next.  Each example's scratch is the single call's, rounded up to
-    16 bytes, and its tickets are its own.  Raises ``ValueError`` past
-    :data:`MAX_GRID` blocks."""
+    parameters followed by the bytes each pointer of the launch's own
+    (outputs, scratch, tickets) advances from one example to the next;
+    the inputs are read through :func:`input_table`.  Each example's
+    scratch is the single call's, rounded up to 16 bytes, and its tickets
+    are its own.  Raises ``ValueError`` past :data:`MAX_GRID` blocks."""
     nblocks = run.nblocks * batch
     if nblocks > MAX_GRID:
         raise ValueError(f"a batch of {batch} examples of {run.nblocks} "
                          f"blocks each is past the grid's {MAX_GRID} "
                          f"blocks")
     slab = -(-max(run.scratch_floats, 1) // 4) * 4
-    strides = [math.prod(s) * lay.itemsize
-               for s in list(in_shapes) + output_shapes(lay, run)]
+    strides = [math.prod(s) * lay.itemsize for s in output_shapes(lay, run)]
     strides += [4 * slab, 4 * run.tickets]
     return dataclasses.replace(
         run, ints=run.ints + tuple(strides), nblocks=nblocks,
@@ -373,10 +391,13 @@ def build_call(call: CallPlan, sizes: tuple[int, ...], dtype, *,
 def build_batched(call: CallPlan, sizes: tuple[int, ...], dtype, *,
                   device=None, chunk=None, plane_chunk=None, seated=False):
     """:func:`build_call` over a batch: ``fn`` maps the call's inputs,
-    each with one leading batch axis of the same width ``B >= 1``, to
-    its outputs (padded, or with ``seated`` as :func:`build_call`'s) with
-    that leading axis, in **one** launch of the
-    batched kernel for the whole batch.  The launch is the single
+    each a tensor with one leading batch axis or a sequence of the
+    examples' tensors, of the same width ``B >= 1``, to its outputs
+    (padded, or with ``seated`` as :func:`build_call`'s) with that leading
+    axis, in **one** launch of the batched kernel for the whole batch.
+    The kernel reads each example's inputs where they are, through a
+    table of their addresses (:func:`input_table`): a sequence's tensors
+    are neither stacked nor copied.  The launch is the single
     call's at ``sizes`` (its chunk and plane-chunk lengths, chosen from
     the single kernel's residency or forced as in :func:`build_call`),
     so each example's bits equal its single call's.  Both kernels are
@@ -432,16 +453,22 @@ def _build(call: CallPlan, sizes, dtype, *, device=None, chunk=None,
         if len(args) != len(call.inputs):
             raise ValueError(f"call {call.name} takes {len(call.inputs)} "
                              f"inputs, got {len(args)}")
-        dev = args[0].device if isinstance(args[0], torch.Tensor) else None
-        lead = ()
         if batched:
-            lead = tuple(args[0].shape[:1]) if dev is not None else (0,)
-        for i, t, shape in zip(call.inputs, args, in_shapes):
-            _check_tensor(t, f"input {i.name!r}", lead + shape, dev, dtype,
-                          card.kind)
-        if lead and lead[0] < 1:
-            raise ValueError(f"call {call.name}: a batch needs a leading "
-                             f"batch axis of width >= 1")
+            # each input as its examples' tensors: a stacked tensor's
+            # slices, or the sequence as given
+            args = [tuple(a.unbind(0)) if isinstance(a, torch.Tensor)
+                    else tuple(a) for a in args]
+            width = len(args[0])
+            if width < 1 or any(len(a) != width for a in args):
+                raise ValueError(f"call {call.name}: a batch needs one "
+                                 f"width >= 1 for every input, got "
+                                 f"{[len(a) for a in args]}")
+        first = args[0][0] if batched else args[0]
+        dev = first.device if isinstance(first, torch.Tensor) else None
+        for i, a, shape in zip(call.inputs, args, in_shapes):
+            for t in (a if batched else (a,)):
+                _check_tensor(t, f"input {i.name!r}", shape, dev, dtype,
+                              card.kind)
         with card.device(dev), obs.span("k1.launch"):
             if not built:
                 with obs.span("kernel.build"):
@@ -456,7 +483,7 @@ def _build(call: CallPlan, sizes, dtype, *, device=None, chunk=None,
                         sms))
             lib, run, sms = built[0]
             if batched:
-                run = batch_launch(lay, run, in_shapes, lead[0], sms)
+                run = batch_launch(lay, run, width, sms)
             return run_kernel(lib, lay, run, args,
                               threads=card.threads(run),
                               stream=card.stream(dev))

@@ -11,33 +11,43 @@ through the CUDA stencil kernel by default.
 Three layers:
 
 * **Shape buckets** — request sizes are quantized up to a bucket
-  (:func:`quantize`; per-dim quantum, default 32), inputs are
-  zero-padded to the bucket (:func:`pad_to_bucket`) and outputs are
-  re-seated to the request's true shape (:func:`unpad_outputs`).  Each
-  program compiles exactly once
+  (:func:`quantize`; per-dim quantum, default 32), and only requests of
+  one bucket share a micro-batch.  Each program compiles exactly once
   (:func:`repro_torch.core.engine.compile_batched` — the single-example
-  executor over a leading batch axis: on the card one launch of the CUDA
-  kernel's batched source per grid ``CallPlan`` for a whole micro-batch,
-  as the reference's ``vmap`` gives ``pallas_call`` a batch grid axis);
-  its executor fixes one launch shape of the built kernel per problem
-  size and keeps it, so the buckets bound the launch shapes a stream of
-  mixed-size requests fixes.
+  executor over a batch: on the card one launch of the CUDA kernel's
+  batched source per grid ``CallPlan`` for a whole micro-batch, as the
+  reference's ``vmap`` gives ``pallas_call`` a batch grid axis, the
+  kernel reading each example's inputs through a table of their
+  addresses); its executor fixes one launch shape of the built kernel
+  per problem size and keeps it.  A batch whose members share one size
+  (an ensemble's members) runs at that size from the members' own
+  tensors: nothing is padded, stacked or copied, and each ticket gets
+  its row of the launch's stacked output (a view: an answer held keeps
+  its whole batch's output allocated) — so a stream of such batches
+  fixes one launch shape for each exact size, as ``compile_program``
+  fixes one for each size.  A batch of mixed sizes pads each member to
+  the bucket (:func:`pad_to_bucket`), hands the padded copies to the
+  kernel as they are, and re-seats each result to its request's true
+  shape (:func:`unpad_outputs`): one launch shape for each bucket.
   Zero-padding is bit-exact for stencil programs (goal
   stores seat only the valid region ``[lo, n+hi)`` per dim and the
   padded lanes never feed it); it is *not* guaranteed bit-exact for
   reductions (padding changes the reduce-tree shape), so programs with
   a ``reduce`` rule get exact-size buckets (quantum 1) automatically.
+  The counters ``serve.gathered`` and ``serve.padded``
+  (:mod:`repro_torch.obs`) count the batches of each kind.
 * **Request queue + micro-batcher** — :meth:`PlanServe.submit` enqueues
   a request and returns a :class:`ServeTicket`; a background batcher
   thread collects up to ``max_batch`` same-bucket requests or waits at
-  most ``max_wait_ms``, pads each to the bucket, stacks, executes one
-  batched call on the card (one kernel launch per grid ``CallPlan``,
+  most ``max_wait_ms``, executes one batched call on the card over the
+  members (or their padded copies) (one kernel launch per grid
+  ``CallPlan``,
   from the batcher's thread, on its current stream), waits for the
   device through an event, and scatters
   per-request outputs back through the tickets — so a ticket's latency
   includes the device's time, not just the enqueue.  Nothing is traced,
   so batches are not padded to a family of widths: the batched kernel
-  takes any batch width at the bucket's launch shape.
+  takes any batch width at a launch shape.
 * **Warm start** — with a ``plan_cache_dir`` (default: the
   ``REPRO_PLAN_CACHE_DIR`` environment variable, same as
   ``compile_program``), program compilations go through the on-disk plan
@@ -52,7 +62,7 @@ Per-request metrics (queue wait, batch size, compile-vs-cache-hit,
 p50/p99 latency, requests/s) accumulate in :class:`ServeMetrics`.  With
 spans on (:mod:`repro_torch.obs`) the caller's ``serve.submit`` and the
 batcher's ``serve.wait``, ``serve.collect`` and ``serve.batch`` (with
-``serve.pad``, ``serve.stack``, the plan's run, ``serve.unpad``,
+``serve.pad`` and ``serve.unpad`` of a mixed batch, the plan's run,
 ``serve.finish`` and ``serve.resolve`` inside) are recorded, joined by
 the ``request_id`` and ``batch_id`` in each ticket's ``stats``.
 """
@@ -162,8 +172,8 @@ def pad_to_bucket(program: Program, arrays: dict, bucket: tuple, *,
                   dtype=torch.float32, device="cpu") -> dict:
     """Zero-pad every input array (trailing pad per axis) to the shapes
     the bucket implies: length ``B + hi - lo`` per dim, ``B`` the
-    bucketed size.  Returns tensors of ``dtype`` on ``device``, ready to
-    stack."""
+    bucketed size.  Returns contiguous tensors of ``dtype`` on
+    ``device``."""
     bsz = dict(bucket)
     out = {}
     for ax in program.axioms:
@@ -232,7 +242,10 @@ class ServeTicket:
         """Block until done and return ``{store_as: tensor}`` (on the
         engine's device, its computation finished) — raising
         the batch's execution error if it failed, or ``TimeoutError``
-        after ``timeout`` seconds."""
+        after ``timeout`` seconds.  An answer may be a view of its
+        micro-batch's one stacked output (always where the members
+        share one size), so while it is held the whole batch's output
+        stays allocated: ``.clone()`` an answer that is kept long."""
         if not self._event.wait(timeout):
             raise TimeoutError("request still queued/executing")
         if self._error is not None:
@@ -404,6 +417,8 @@ class PlanServe:
             plan_cache_dir = os.environ.get(PLAN_CACHE_DIR_ENV) or None
         self.plan_cache_dir = plan_cache_dir
         self.compile_kwargs = dict(compile_kwargs or {})
+        #: the element type the programs compile for (their inputs')
+        self.dtype = self.compile_kwargs.get("dtype", torch.float32)
         self.metrics = ServeMetrics()
         self._compiled: dict = {}   # name -> BatchedGenerated
         self._request_ids = itertools.count(1)
@@ -478,20 +493,20 @@ class PlanServe:
             ev.synchronize()
 
     def prefill(self, name: str, sizes: dict, *, batch: int = 1) -> tuple:
-        """Warm one bucket ahead of traffic: compile the program and run
-        a zero batch of ``batch`` examples at the bucket ``sizes``
-        quantizes to through it (which builds the kernel and fixes its
-        launch for the bucket).  Returns the bucket key."""
+        """Warm one size ahead of traffic: compile the program and run a
+        zero batch of ``batch`` examples at exactly ``sizes`` through it
+        (which builds the kernel and fixes its launch for the batches
+        whose members all have that size).  Returns the bucket key
+        ``sizes`` quantizes to."""
         prog = self._program(name)
         bucket = bucket_sizes(prog, sizes, self._quantum[name])
         gen = self._get_compiled(name)
-        bsz = dict(bucket)
         zero = {}
         for ax in prog.axioms:
             exts = [ax.extents[_dim(d)] for d in ax.term.ref.dims]
-            shape = tuple(bsz[e.size] + e.hi - e.lo for e in exts)
-            zero[ax.term.ref.name] = torch.zeros(
-                (batch,) + shape, dtype=torch.float32, device=self.device)
+            shape = tuple(sizes[e.size] + e.hi - e.lo for e in exts)
+            zero[ax.term.ref.name] = (torch.zeros(
+                shape, dtype=self.dtype, device=self.device),) * batch
         with self._on_device():
             gen.fn(zero)
             self._finish()
@@ -571,26 +586,42 @@ class PlanServe:
             with obs.span("serve.batch", bid):
                 self._execute(key, batch, bid)
 
+    def _tensors(self, arrays: dict) -> dict:
+        """A request's inputs as contiguous tensors of the engine's
+        dtype on its device: each array that is one already as it is."""
+        return {k: a if isinstance(a, torch.Tensor) and a.dtype == self.dtype
+                and a.device == self.device and a.is_contiguous()
+                else as_tensor(a, self.dtype, self.device)
+                for k, a in arrays.items()}
+
     def _execute(self, key, batch, bid: int) -> None:
         name, bucket = key
         prog = self.programs[name]
         t_start = time.perf_counter()
         self.metrics.record_batch(bucket, len(batch))
+        # members of one size run at it, from their own tensors; a mixed
+        # batch runs at its bucket
+        gathered = all(p.sizes == batch[0].sizes for p in batch)
+        obs.count("serve.gathered" if gathered else "serve.padded")
         try:
             with self._on_device():
                 gen = self._get_compiled(name)
-                with obs.span("serve.pad", bid):
-                    padded = [pad_to_bucket(prog, p.arrays, bucket,
-                                            device=self.device)
-                              for p in batch]
-                with obs.span("serve.stack", bid):
-                    stacked = {k: torch.stack([p[k] for p in padded])
-                               for k in padded[0]}
-                outputs = gen.fn(stacked)
-                with obs.span("serve.unpad", bid):
-                    outs = [unpad_outputs(prog, {k: v[i] for k, v in
-                                                 outputs.items()}, p.sizes)
-                            for i, p in enumerate(batch)]
+                if gathered:
+                    inputs = [self._tensors(p.arrays) for p in batch]
+                else:
+                    with obs.span("serve.pad", bid):
+                        inputs = [pad_to_bucket(prog, p.arrays, bucket,
+                                                dtype=self.dtype,
+                                                device=self.device)
+                                  for p in batch]
+                outputs = gen.fn({k: tuple(x[k] for x in inputs)
+                                  for k in inputs[0]})
+                outs = [{k: v[i] for k, v in outputs.items()}
+                        for i in range(len(batch))]
+                if not gathered:
+                    with obs.span("serve.unpad", bid):
+                        outs = [unpad_outputs(prog, out, p.sizes)
+                                for out, p in zip(outs, batch)]
                 with obs.span("serve.finish", bid):
                     self._finish()
         except Exception as err:

@@ -72,9 +72,10 @@ def test_single_sources_are_unchanged(name, dtype):
 @pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
 def test_batched_source_differs_only_where_it_finds_its_example(name):
     """The batched kernel is the single call's with the example decoded
-    from the grid's outermost factor: its operands moved by
-    ``hfav::example``, the block within its example in the scratch's and
-    the fold's place of ``blockIdx.x``."""
+    from the grid's outermost factor: its operands found by
+    ``hfav::example`` (its inputs through the table of addresses), the
+    block within its example in the scratch's and the fold's place of
+    ``blockIdx.x``."""
     for call in _golden(name).calls:
         if not call.has_grid:
             continue
@@ -84,11 +85,14 @@ def test_batched_source_differs_only_where_it_finds_its_example(name):
                                                               batched=True)
         added = [ln for ln in batched if ln not in single]
         removed = [ln for ln in single if ln not in batched]
-        # each changed line, and four new ones: the batched parameters'
-        # count, the example, its operands, the block within it
+        # each changed line, and five new ones: the count of inputs read
+        # through the table, the batched parameters' count, the example,
+        # its operands, the block within it
         assert len(removed) <= 6, removed
-        assert len(added) == len(removed) + 4, (added, removed)
-        assert any("hfav::example<HFAV_ND>(PB, ex)" in ln for ln in added)
+        assert len(added) == len(removed) + 5, (added, removed)
+        assert f"#define HFAV_NI {len(call.inputs)}" in added
+        assert any("hfav::example<HFAV_ND, HFAV_NI>(PB, ex)" in ln
+                   for ln in added)
         assert "blockIdx.x % nblocks" in "\n".join(added)
         body = "\n".join(batched)
         assert body.count("blockIdx.x") == 2  # the example and the block
@@ -169,6 +173,68 @@ def test_emulated_batch_is_per_example_bit_for_bit(name, dtype, batch, chunk,
             assert not (nan & ~torch.isnan(want[k].float())).any(), (k, b)
 
 
+@pytest.mark.parametrize("name", sorted(ALL_PROGRAMS))
+def test_emulated_batch_of_member_tensors_is_the_stacked_batch(
+        name, emulator, monkeypatch):
+    """``compile_batched`` over each input given as the list of the
+    examples' own tensors: the stacked batch's bits, in one launch per
+    grid ``CallPlan``, and nothing stacked, since no program's plan reads
+    an input on the host (each call's table holds the members' addresses;
+    normalization's and smooth_norm's second call's, the slices of the
+    first call's stacked output)."""
+    stacked = check_batched(name, torch.float32, emulator, 3, chunk=None)
+    members = [single_outputs(name, torch.float32, emulator, b,
+                              chunk=None)[0] for b in range(3)]
+    bgen = compile_batched(ALL_PROGRAMS[name](), emulator, device="cpu",
+                           chunk=None)
+    stacks = []
+    real = torch.stack
+    monkeypatch.setattr(torch, "stack",
+                        lambda *a, **k: stacks.append(1) or real(*a, **k))
+    before = k1.launches
+    out = bgen.fn({k: [m[k] for m in members] for k in members[0]})
+    assert k1.launches - before == grid_calls(name)
+    assert not stacks
+    assert set(out) == set(stacked)
+    for k in out:
+        assert same_bits(out[k], stacked[k]), k
+
+
+def test_emulated_batch_stacks_members_the_host_half_reads(emulator,
+                                                           monkeypatch):
+    """Where the host half reads an input itself (a lane pass here, which
+    this test adds to laplace5's plan: no plan K1 runs has one, since K1
+    refuses LayoutApply's constructs), a batch given as its examples'
+    tensors is stacked there, once, and gives the stacked batch's bits;
+    examples of unequal shapes raise ``ValueError``."""
+    import dataclasses
+
+    from repro_torch.core.plan import LanePass
+    kplan = _plan("laplace5")
+    rng = np.random.default_rng(5)
+    members = [inputs("laplace5", kplan, rng, dims=dict(DIM, i=20))["cell"]
+               for _ in range(3)]
+    width = members[0].shape[-1]
+    assert width % 2 == 0
+    plan = dataclasses.replace(kplan,
+                               pre_passes=(LanePass("cell", 2, width),))
+    fn = execute_plan(plan, interpreter=emulator, device="cpu",
+                      batched=True)
+    want = fn(cell=torch.stack(members))
+    stacks = []
+    real = torch.stack
+    monkeypatch.setattr(torch, "stack",
+                        lambda *a, **k: stacks.append(1) or real(*a, **k))
+    got = fn(cell=members)
+    assert len(stacks) == 1
+    for k in want:
+        assert same_bits(got[k], want[k]), k
+    bgen = compile_batched(ALL_PROGRAMS["laplace5"](), emulator,
+                           device="cpu")
+    with pytest.raises(ValueError, match="first example's shape"):
+        bgen.fn({"cell": [members[0], members[1][:, 1:].contiguous()]})
+
+
 @pytest.mark.parametrize("plane_chunk", [1, 2, 3])
 @pytest.mark.parametrize("chunk", [1, 3, None])
 @pytest.mark.parametrize("name", PLANE_WINDOW_PROGRAMS)
@@ -225,33 +291,40 @@ def test_emulated_batch_folds_each_example(name, dims, opts, emulator):
 
 def test_batch_launch_parameters():
     """The batched launch is the single call's grid once for each
-    example, with each pointer's per-example bytes after the single
-    call's size parameters, a scratch and tickets per example, and
-    refuses a grid past 2**31 - 1 blocks."""
+    example, with the per-example bytes of each pointer of the launch's
+    own (outputs, scratch, tickets) after the single call's size
+    parameters, a scratch and tickets per example, its inputs read
+    through a table of addresses (one row an input, one column an
+    example), and refuses a grid past 2**31 - 1 blocks."""
     call = _plan("normalization").calls[0]
     lay = CallLayout(call, torch.bfloat16)
     sizes = (9, 37)
     run = lay.concretize(sizes, 4, 2)
     shapes = k1.input_shapes(call, sizes)
-    brun = k1.batch_launch(lay, run, shapes, 5)
+    brun = k1.batch_launch(lay, run, 5)
     assert brun.nblocks == 5 * run.nblocks and brun.batch == 5
     assert brun.ints[:len(run.ints)] == run.ints
     strides = brun.ints[len(run.ints):]
-    assert len(strides) == lay.n_ptrs
     outs = k1.output_shapes(lay, run)
-    assert list(strides[:len(shapes) + len(outs)]) == [
-        2 * math.prod(s) for s in shapes + outs]
+    assert len(strides) == lay.n_ptrs - len(shapes) == len(outs) + 2
+    assert list(strides[:len(outs)]) == [2 * math.prod(s) for s in outs]
     slab = strides[-2] // 4
     assert slab % 4 == 0 and slab >= run.scratch_floats
     assert brun.scratch_floats == 5 * slab
     assert strides[-1] == 4 * run.tickets and brun.tickets == 5 * run.tickets
     with pytest.raises(ValueError, match="past the grid"):
-        k1.batch_launch(lay, run, shapes, k1.MAX_GRID // run.nblocks + 1)
+        k1.batch_launch(lay, run, k1.MAX_GRID // run.nblocks + 1)
+    # the table: each example's address of each input, where it lies
+    members = [[torch.empty(s, dtype=torch.bfloat16) for _ in range(5)]
+               for s in shapes]
+    _, tensors = k1.launch_tensors(lay, brun, members)
+    for row, ins in zip(tensors, members):
+        assert row.dtype == torch.int64
+        assert row.tolist() == [t.data_ptr() for t in ins]
     # the bytes the batch must move: five times a single call's
     from repro_torch.kernels.stencil2d import bench
     args = [torch.empty(s, dtype=torch.bfloat16) for s in shapes]
-    bargs = [torch.empty((5, *s), dtype=torch.bfloat16) for s in shapes]
-    assert bench.call_bytes(lay, brun, bargs) \
+    assert bench.call_bytes(lay, brun, members) \
         == 5 * bench.call_bytes(lay, run, args)
 
 
@@ -340,3 +413,11 @@ def test_cuda_batch_is_one_launch_per_call_and_per_example_bits(name, dtype):
             want = single.fn(**ex)
             for k in want:
                 assert same_bits(out[k][b], want[k]), (backend, k, b)
+        # the examples' own tensors, read through the table where they lie
+        before = k1.launches
+        seq = bgen.fn({k: [ex[k].to(dtype) for ex in examples]
+                       for k in examples[0]})
+        torch.cuda.synchronize()
+        assert k1.launches - before == grid_calls(name)
+        for k in out:
+            assert same_bits(seq[k], out[k]), (backend, k)

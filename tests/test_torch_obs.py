@@ -224,8 +224,9 @@ def test_one_planserve_batch_is_one_span_tree_joined_by_ids(no_gc):
     assert collect[3] == spans[batch][3] == bid and collect[2] != main
     assert collect[5] <= spans[batch][4]
     kids = [s for s in spans if s[1] == batch]
-    assert [s[0] for s in kids] == ["serve.pad", "serve.stack", "plan.run",
-                                    "plan.run", "plan.run", "serve.unpad",
+    # members of one size: run from their own tensors, nothing padded,
+    # stacked or unpadded
+    assert [s[0] for s in kids] == ["plan.run", "plan.run", "plan.run",
                                     "serve.finish", "serve.resolve"]
     assert all(s[3] == bid for s in kids if s[0].startswith("serve."))
 

@@ -155,6 +155,20 @@ def test_default_backend_is_the_devices_stencil_interpreter(monkeypatch):
         PlanServe({"laplace5": _prog("laplace5")})
 
 
+def test_index_less_cuda_is_the_current_card(monkeypatch):
+    """``device="cuda"`` resolves to the current card with its index, so
+    it compares equal to the device of the tensors made there (a batch's
+    members are checked against it)."""
+    from repro_torch.core.interpreters import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert resolve_device("cuda") == torch.device("cuda", 3)
+    assert resolve_device(None) == torch.device("cuda", 3)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 3)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
 @pytest.mark.parametrize("backend", CPU_BACKENDS)
 def test_batch_assembly_and_scatter_order(backend):
     """max_batch same-bucket requests coalesce into one batch, and each
@@ -348,6 +362,130 @@ def test_micro_batch_is_one_emulated_launch_per_grid_call(name, shape, n,
 
 def request_sizes_names(name):
     return sorted({ax.term.ref.name for ax in _prog(name).axioms})
+
+
+def _serve_emulated(name, shapes, monkeypatch, **kw):
+    """One micro-batch of ``name``'s requests, one at each of ``shapes``
+    (seeded), through PlanServe on the emulated K1 with nothing stacked
+    anywhere (``torch.stack`` raises while it runs), each answer held to
+    its request's single call bit for bit; returns the K1 launches and
+    the counts of ``serve.gathered`` and ``serve.padded`` the batch
+    added."""
+    import repro_torch.serve.plans as plans
+    from _emulate import emulated as emulated_k1
+    from _emulate import need_gxx
+    from repro_torch import obs
+    from repro_torch.kernels.stencil2d import kernel as k1
+    need_gxx()
+    rng = _rng()
+    arrays = [{a: torch.from_numpy(rng.standard_normal(shape)
+                                   .astype(np.float32))
+               for a in request_sizes_names(name)} for shape in shapes]
+
+    def stacked(*a, **k):
+        raise AssertionError("a member was stacked")
+
+    with emulated_k1() as emulated:
+        monkeypatch.setattr(plans, "VMAP_SAFE", VMAP_SAFE | {emulated})
+        with _serve([name], backend=emulated, max_batch=len(shapes),
+                    max_wait_ms=10_000.0, **kw) as srv:
+            srv.prefill(name, request_sizes(_prog(name), arrays[0]),
+                        batch=len(shapes))
+            counts = [obs.counter(c) for c in ("serve.gathered",
+                                               "serve.padded")]
+            before = k1.launches
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(plans.torch, "stack", stacked)
+                tickets = [srv.submit(name, a) for a in arrays]
+                outs = [t.result(120) for t in tickets]
+            launches = k1.launches - before
+            counts = [obs.counter(c) - n for c, n in
+                      zip(("serve.gathered", "serve.padded"), counts)]
+        want = [compile_program(_prog(name), emulated, device="cpu").fn(**a)
+                for a in arrays]
+    assert srv.metrics.snapshot()["batches"] == 1  # (prefill: none)
+    for out, w in zip(outs, want):
+        assert set(out) == set(w)
+        for k in w:
+            assert torch.equal(out[k], w[k]), k
+    return launches, counts, outs
+
+
+def test_uniform_micro_batch_runs_at_its_size_from_its_members(monkeypatch):
+    """Members of one size that is no bucket's (cosmo, 3 x 11 x 13, in a
+    bucket of 32s) run at that size from their own tensors: one emulated
+    launch, nothing padded or stacked, each answer its single call's
+    bits, counted once in ``serve.gathered``."""
+    import repro_torch.serve.plans as plans
+
+    def padded(*a, **k):
+        raise AssertionError("a member was padded")
+
+    monkeypatch.setattr(plans, "pad_to_bucket", padded)
+    launches, counts, outs = _serve_emulated("cosmo", [(3, 11, 13)] * 3,
+                                             monkeypatch)
+    assert launches == 1
+    assert counts == [1, 0]
+    # each answer is its row of the launch's one output: holding one
+    # holds the whole batch's (as the docs say)
+    for k in outs[0]:
+        base = outs[0][k].untyped_storage()
+        assert all(o[k].untyped_storage().data_ptr() == base.data_ptr()
+                   for o in outs)
+        assert base.nbytes() >= len(outs) * outs[0][k].nbytes
+
+
+def test_mixed_micro_batch_pads_to_its_bucket_and_stacks_nothing(
+        monkeypatch):
+    """Members of two sizes in one bucket are padded to it and unpadded,
+    counted once in ``serve.padded``; the padded copies go to the one
+    emulated launch as they are (nothing stacked), and each answer is its
+    single call's bits."""
+    launches, counts, _ = _serve_emulated("cosmo", [(3, 11, 13), (4, 9, 14)],
+                                          monkeypatch, quantum=16)
+    assert launches == 1
+    assert counts == [0, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [[(6, 37, 45)] * 3,
+                                    [(6, 37, 45), (5, 40, 41)]],
+                         ids=["uniform", "mixed"])
+def test_cuda_planserve_by_the_device_type(shapes):
+    """On the card, asked for as ``device="cuda"`` (no index): a warmed
+    micro-batch of cosmo requests, of one size or of two in one bucket,
+    each answer its request's single K1 call's bits; and
+    ``compile_batched(device="cuda")`` over the members' own tensors
+    gives the bits of their stacked batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU)")
+    from repro_torch import obs
+    gen = torch.Generator().manual_seed(11)
+    arrays = [{"u": torch.randn(shape, generator=gen).cuda()}
+              for shape in shapes]
+    counts = [obs.counter(c) for c in ("serve.gathered", "serve.padded")]
+    with PlanServe({"cosmo": _prog("cosmo")}, device="cuda",
+                   max_batch=len(shapes), max_wait_ms=10_000.0) as srv:
+        assert srv.device == torch.device("cuda", torch.cuda.current_device())
+        srv.prefill("cosmo", request_sizes(_prog("cosmo"), arrays[0]),
+                    batch=len(shapes))
+        tickets = [srv.submit("cosmo", a) for a in arrays]
+        outs = [t.result(300) for t in tickets]
+    gathered = len(set(shapes)) == 1
+    assert [obs.counter(c) - n for c, n in
+            zip(("serve.gathered", "serve.padded"), counts)] == \
+        ([1, 0] if gathered else [0, 1])  # (prefill: none)
+    single = compile_program(_prog("cosmo"), "cuda", device="cuda")
+    for a, out in zip(arrays, outs):
+        want = single.fn(**a)
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+    if gathered:
+        bgen = compile_batched(_prog("cosmo"), "cuda", device="cuda")
+        seq = bgen.fn({"u": [a["u"] for a in arrays]})
+        stacked = bgen.fn({"u": torch.stack([a["u"] for a in arrays])})
+        for k in stacked:
+            assert torch.equal(seq[k], stacked[k]), k
 
 
 # ---------------------------------------------------------------------------
