@@ -255,7 +255,8 @@ def _compute_extents(idag: IDAG, dag: DataflowDAG) -> None:
     2. *Demand* (backward from goals): the positions actually required,
        widened by consumer read offsets.  Reduced dimensions (present on
        inputs but not outputs) take their full availability — a reduction
-       consumes everything its input can provide.
+       consumes everything its input can provide — narrowed to the rule's
+       region where it names one (``KernelRule.within``).
     """
     order = dag.topo_order()
     axiom_ext: dict[Term, dict[str, Extent]] = {}
@@ -299,6 +300,11 @@ def _compute_extents(idag: IDAG, dag: DataflowDAG) -> None:
             if goal is not None:
                 g.extent = dict(goal.extents)
             continue
+        within = dict(g.rule.within) if g.rule is not None else {}
+        if set(within) - set(g.reduced_dims):
+            raise ValueError(
+                f"{g} narrows {sorted(set(within) - set(g.reduced_dims))}, "
+                f"which it does not reduce")
         for d in g.dims:
             if d in g.reduced_dims:
                 e = avail[g.gid].get(d)
@@ -306,7 +312,7 @@ def _compute_extents(idag: IDAG, dag: DataflowDAG) -> None:
                     raise ValueError(
                         f"cannot ground reduced dim {d} of {g} from axioms"
                     )
-                g.extent[d] = e
+                g.extent[d] = isect(e, within[d]) if d in within else e
                 continue
             acc = None
             for _, base in g.writes:

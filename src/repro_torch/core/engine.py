@@ -140,7 +140,7 @@ def program_signature(program: Program):
 
     rules = tuple(
         (r.name, params(r.inputs), params(r.outputs), r.kind, r.init,
-         _fn_key(r.fn))
+         _fn_key(r.fn)) + ((exts(dict(r.within)),) if r.within else ())
         for r in program.rules
     )
     axioms = tuple((str(a.term), exts(a.extents)) for a in program.axioms)

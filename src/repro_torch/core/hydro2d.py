@@ -28,11 +28,20 @@ way and the step's outputs cover ``j, i in [2, n - 2)``.  The y sweep
 is the x sweep's operator with the roles of the momenta swapped: its
 normal momentum is ``rhov``.
 
-Two departures from HydroC: ``DTDX`` is a constant of the program
-(HydroC computes ``dt`` every step from a Courant reduction, a program
-of its own), and every call runs x then y (HydroC alternates the order
-step by step).  Every branch of HydroC's routines is a ``where``, so
-the cost of a point does not depend on its data.
+``hydro2d_program()`` reads ``dt / dx`` as the constant ``DTDX`` and
+runs x then y; ``hydroc_program()`` reads it as the scalar input ``dtdx``
+in either order, and :mod:`repro_torch.core.hydroc` marches it as
+HydroC's main loop does (the Courant reduction every second step, the
+orders alternating, the ghost frame refilled by reflection).  The
+departures that remain: the ghost frame lies inside the arrays (two
+cells a side, so an ``n x n`` array has an ``(n - 4) x (n - 4)``
+interior), the fused x-y step computes the x sweep on the ghost rows
+where HydroC refills them (the same values on a mirrored frame), and the
+card computes in float32 where HydroC computes in double.  Every branch
+of HydroC's routines is a ``where``, so every point evaluates the same
+operations; their time still depends on the data (the card's IEEE
+division is slower on some operands: a sweep of Sedov's blast takes
+about 1.4x one of random states on an H100).
 """
 from __future__ import annotations
 
@@ -51,9 +60,8 @@ SLOPE_TYPE = 1.0
 #: ``dt / dx``: HydroC's Courant factor 0.8 over a bound of ``|u| + c``
 #: under the benchmark's draws (``|u| <= 6``, ``c <= 6``), 12.
 DTDX = 0.8 / 12.0
-#: MUSCL-Hancock's trace: a characteristic is never projected out.
-ZEROL = -100.0 / DTDX
-ZEROR = 100.0 / DTDX
+#: MUSCL-Hancock's trace: a characteristic is never projected out (its
+#: bounds ``ZEROL``, ``ZEROR`` are ``-+100 / dtdx``).
 PROJECT = 1.0
 
 #: The conserved variables: the step's input arrays and its outputs.
@@ -97,16 +105,24 @@ def _slope(qm, q0, qp):
 
 def _trace(r, u, v, p, c, dr, du, dv, dp):
     """The states at the cell's right face (``m``: the left state of the
-    interface to its right) and at its left face (``q``)."""
+    interface to its right) and at its left face (``q``), at
+    ``DTDX``."""
+    return _trace_dt(r, u, v, p, c, dr, du, dv, dp, DTDX)
+
+
+def _trace_dt(r, u, v, p, c, dr, du, dv, dp, dtdx):
+    """:func:`_trace` at ``dtdx``, a value or the step's scalar input."""
+    zerol = -100.0 / dtdx
+    zeror = 100.0 / dtdx
     csq = c * c
     alpham = 0.5 * (dp / (r * c) - du) * r / c
     alphap = 0.5 * (dp / (r * c) + du) * r / c
     alpha0r = dr - dp / csq
     alpha0v = dv
     # the left face: the right state of the interface to the cell's left
-    spminus = where(u - c >= ZEROR, PROJECT, (u - c) * DTDX + 1.0)
-    spplus = where(u + c >= ZEROR, PROJECT, (u + c) * DTDX + 1.0)
-    spzero = where(u >= ZEROR, PROJECT, u * DTDX + 1.0)
+    spminus = where(u - c >= zeror, PROJECT, (u - c) * dtdx + 1.0)
+    spplus = where(u + c >= zeror, PROJECT, (u + c) * dtdx + 1.0)
+    spzero = where(u >= zeror, PROJECT, u * dtdx + 1.0)
     ap = -0.5 * spplus * alphap
     am = -0.5 * spminus * alpham
     azr = -0.5 * spzero * alpha0r
@@ -116,9 +132,9 @@ def _trace(r, u, v, p, c, dr, du, dv, dp):
     qv = v + azv
     qp = p + (ap + am) * csq
     # the right face: the left state of the interface to the cell's right
-    spminus = where(u - c <= ZEROL, -PROJECT, (u - c) * DTDX - 1.0)
-    spplus = where(u + c <= ZEROL, -PROJECT, (u + c) * DTDX - 1.0)
-    spzero = where(u <= ZEROL, -PROJECT, u * DTDX - 1.0)
+    spminus = where(u - c <= zerol, -PROJECT, (u - c) * dtdx - 1.0)
+    spplus = where(u + c <= zerol, -PROJECT, (u + c) * dtdx - 1.0)
+    spzero = where(u <= zerol, -PROJECT, u * dtdx - 1.0)
     ap = -0.5 * spplus * alphap
     am = -0.5 * spminus * alpham
     azr = -0.5 * spzero * alpha0r
@@ -217,8 +233,14 @@ def _cmpflx(gr, gu, gv, gp):
 
 def _update(rho, mom_n, mom_t, e_tot, fr_m, fn_m, ft_m, fe_m,
             fr, fn, ft, fe):
-    return (rho + (fr_m - fr) * DTDX, mom_n + (fn_m - fn) * DTDX,
-            mom_t + (ft_m - ft) * DTDX, e_tot + (fe_m - fe) * DTDX)
+    return _update_dt(rho, mom_n, mom_t, e_tot, fr_m, fn_m, ft_m, fe_m,
+                      fr, fn, ft, fe, DTDX)
+
+
+def _update_dt(rho, mom_n, mom_t, e_tot, fr_m, fn_m, ft_m, fe_m,
+               fr, fn, ft, fe, dtdx):
+    return (rho + (fr_m - fr) * dtdx, mom_n + (fn_m - fn) * dtdx,
+            mom_t + (ft_m - ft) * dtdx, e_tot + (fe_m - fe) * dtdx)
 
 
 def _at(term: str, axis: str, off: int) -> str:
@@ -230,13 +252,20 @@ def _at(term: str, axis: str, off: int) -> str:
     return term.replace(f"{axis}?]", f"{axis}?{sign}{abs(off)}]")
 
 
-def _sweep(s: str, axis: str, state: tuple, out: tuple) -> list:
+def _sweep(s: str, axis: str, state: tuple, out: tuple,
+           dtdx_input: bool = False) -> list:
     """The rules of one sweep along ``axis`` (``"i"`` or ``"j"``):
     ``state`` are the terms of ``(rho, normal momentum, transverse
     momentum, E)`` it reads, ``out`` the terms of what it writes, in
-    that order.  Its locals are named ``<s>_<what>(rho[j?][i?])``."""
+    that order.  Its locals are named ``<s>_<what>(rho[j?][i?])``.  With
+    ``dtdx_input`` the trace and the update read ``dt / dx`` from the
+    scalar input ``dtdx``."""
     def t(what):
         return f"{s}_{what}(rho[j?][i?])"
+
+    dt = [("dtdx", "dtdx")] if dtdx_input else []
+    trace, update = (_trace_dt, _update_dt) if dtdx_input \
+        else (_trace, _update)
 
     prim = ("r", "u", "v", "p")
     rules = [
@@ -256,10 +285,10 @@ def _sweep(s: str, axis: str, state: tuple, out: tuple) -> list:
     rules += [
         kernel(f"{s}_trace",
                inputs=[(w, t(w)) for w in (*prim, "c")]
-               + [("d" + w, t("d" + w)) for w in prim],
+               + [("d" + w, t("d" + w)) for w in prim] + dt,
                outputs=[(f"{f}{w}", t(f"{f}{w}"))
                         for f in ("m", "q") for w in prim],
-               fn=_trace),
+               fn=trace),
         # interface axis + 1/2: the right face of this cell (m) and the
         # left face of the next (q)
         kernel(f"{s}_riemann",
@@ -273,18 +302,21 @@ def _sweep(s: str, axis: str, state: tuple, out: tuple) -> list:
         kernel(f"{s}_update",
                inputs=list(zip(("rho", "mom_n", "mom_t", "e_tot"), state))
                + [(f"f{w}m", _at(t("f" + w), axis, -1)) for w in prim]
-               + [(f"f{w}", t("f" + w)) for w in prim],
+               + [(f"f{w}", t("f" + w)) for w in prim] + dt,
                outputs=[(f"o{k}", o) for k, o in enumerate(out)],
-               fn=_update),
+               fn=update),
     ]
     return rules
 
 
-def hydro2d_program(name: str = "hydro2d", order: str = "xy") -> Program:
+def hydro2d_program(name: str = "hydro2d", order: str = "xy",
+                    dtdx_input: bool = False) -> Program:
     """One split step: the x sweep on ``(rho, rhou, rhov, E)``, then the
     y sweep on its result (``order="yx"``: the y sweep first, HydroC's
     other half-step order); outputs ``rnew, unew, vnew, enew`` (density,
-    the two momenta, total energy) on ``j, i in [2, n - 2)``."""
+    the two momenta, total energy) on ``j, i in [2, n - 2)``.  ``dt /
+    dx`` is :data:`DTDX`, or with ``dtdx_input`` the scalar input
+    ``dtdx`` (a 0-dim array: the Courant program's output)."""
     if order not in ("xy", "yx"):
         raise ValueError(f"order is 'xy' or 'yx', not {order!r}")
     axis = {"x": "i", "y": "j"}
@@ -297,13 +329,20 @@ def hydro2d_program(name: str = "hydro2d", order: str = "xy") -> Program:
         # the normal momentum is rhou along i, rhov along j
         n, t = ("rhou", "rhov") if s == "x" else ("rhov", "rhou")
         return _sweep(s, axis[s], (src["rho"], src[n], src[t], src["E"]),
-                      (dst["rho"], dst[n], dst[t], dst["E"]))
+                      (dst["rho"], dst[n], dst[t], dst["E"]), dtdx_input)
 
     return Program(
         rules=sweep(first, ins, mid) + sweep(second, mid, outs),
-        axioms=[axiom(f"{a}[j?][i?]", j="Nj", i="Ni") for a in STATE],
+        axioms=[axiom(f"{a}[j?][i?]", j="Nj", i="Ni") for a in STATE]
+        + ([axiom("dtdx")] if dtdx_input else []),
         goals=[goal(f"{o}(rho[j][i])", store_as=o,
                     j=("Nj", 2, -2), i=("Ni", 2, -2)) for o in OUTPUTS],
         loop_order=("j", "i"),
         name=name,
     )
+
+
+def hydroc_program(name: str = "hydroc", order: str = "xy") -> Program:
+    """HydroC's split step in ``order`` at the scalar input ``dtdx``
+    (:mod:`repro_torch.core.hydroc` marches it)."""
+    return hydro2d_program(name, order, dtdx_input=True)

@@ -1,9 +1,12 @@
 """The paper's worked examples as HFAV programs.
 
 The port's copy of ``repro.core.programs``: the same 15 programs, rules
-and kernel bodies, and one program of the port's own
+and kernel bodies, and three programs of the port's own
 (:data:`PORT_ONLY`): :func:`~repro_torch.core.hydro2d.hydro2d_program`,
-HydroC's whole split step.  The bodies call ``where``/``sqrt`` from
+HydroC's whole split step, and the two of HydroC's time loop
+(:mod:`repro_torch.core.hydroc`): ``courant``, the reduction that gives
+``dt / dx``, and ``hydroc``, the split step reading ``dt / dx`` as a
+scalar input.  The bodies call ``where``/``sqrt`` from
 :mod:`repro_torch.core.elementwise` instead of ``jnp``, so one body runs
 eagerly on torch tensors and lowers to C under the CUDA emitter.
 
@@ -67,7 +70,8 @@ warmer (``scripts/warm_cache.py``) and parametrized tests.
 from __future__ import annotations
 
 from .elementwise import sqrt, where
-from .hydro2d import hydro2d_program
+from .hydro2d import hydro2d_program, hydroc_program
+from .hydroc import courant_program
 from .rules import Program, axiom, goal, kernel
 
 
@@ -799,8 +803,10 @@ ALL_PROGRAMS = {
     "cosmo": cosmo_program,
     "hydro1d": hydro1d_program,
     "hydro2d": hydro2d_program,
+    "courant": courant_program,
+    "hydroc": hydroc_program,
 }
 
 #: The programs of :data:`ALL_PROGRAMS` the reference package lacks:
 #: their golden plans live under tests/goldens/port_plans/.
-PORT_ONLY = ("hydro2d",)
+PORT_ONLY = ("hydro2d", "courant", "hydroc")

@@ -46,10 +46,17 @@ class KernelRule:
     # the ordinary rank rules.
     kind: str = "map"
     init: float = 0.0
+    # a reduction's region: ``(dim, Extent)`` pairs narrowing what it
+    # folds in those reduced dims (by default everything its input can
+    # provide), e.g. the interior of a grid whose frame holds ghosts
+    within: tuple = ()
 
     def __post_init__(self) -> None:
         if not self.outputs:
             raise ValueError(f"kernel {self.name} has no outputs")
+        if self.within and not self.is_reduction:
+            raise ValueError(f"kernel {self.name}: only a reduction "
+                             f"takes a region (within=)")
 
     @property
     def is_reduction(self) -> bool:
@@ -73,8 +80,10 @@ def kernel(
     fn: Optional[Callable] = None,
     kind: str = "map",
     init: float = 0.0,
+    within: Optional[dict] = None,
 ) -> KernelRule:
-    """Convenience constructor parsing pattern strings."""
+    """Convenience constructor parsing pattern strings; ``within`` maps a
+    reduced dim to its region as :func:`axiom` takes extents."""
     return KernelRule(
         name=name,
         inputs=tuple(Param(n, parse_term(p)) for n, p in inputs),
@@ -82,6 +91,7 @@ def kernel(
         fn=fn,
         kind=kind,
         init=init,
+        within=tuple(sorted(_extents(within or {}).items())),
     )
 
 
@@ -155,7 +165,7 @@ class Program:
         return tuple(sorted(dims, key=self.loop_order.index))
 
 
-def axiom(term: str, **extents: Extent | tuple | str) -> Axiom:
+def _extents(extents: dict) -> dict[str, Extent]:
     exts: dict[str, Extent] = {}
     for d, e in extents.items():
         if isinstance(e, Extent):
@@ -164,16 +174,13 @@ def axiom(term: str, **extents: Extent | tuple | str) -> Axiom:
             exts[d] = Extent(e)
         else:
             exts[d] = Extent(*e)
-    return Axiom(parse_term(term), exts)
+    return exts
+
+
+def axiom(term: str, **extents: Extent | tuple | str) -> Axiom:
+    """An input term; with no extents (and no indices), a scalar."""
+    return Axiom(parse_term(term), _extents(extents))
 
 
 def goal(term: str, store_as: Optional[str] = None, **extents) -> Goal:
-    exts: dict[str, Extent] = {}
-    for d, e in extents.items():
-        if isinstance(e, Extent):
-            exts[d] = e
-        elif isinstance(e, str):
-            exts[d] = Extent(e)
-        else:
-            exts[d] = Extent(*e)
-    return Goal(parse_term(term), exts, store_as)
+    return Goal(parse_term(term), _extents(extents), store_as)

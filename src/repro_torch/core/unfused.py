@@ -100,7 +100,10 @@ def build_unfused(program: Program, *, device=None) -> UnfusedProgram:
             for d in v.dims:
                 ext = g.extent.get(d) or Extent(f"N{d}")
                 if d in g.reduced_dims:
-                    e = v.extent.get(d) or ext
+                    # a reduction folds its own region (its rule's
+                    # ``within``), else all its input holds
+                    e = g.extent[d] if d in dict(g.rule.within) \
+                        else v.extent.get(d) or ext
                     lo = e.lo - org.get(d, 0)
                     hi = sizes[e.size] + e.hi - org.get(d, 0)
                 else:

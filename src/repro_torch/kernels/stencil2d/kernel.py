@@ -337,9 +337,12 @@ def launch(lib, run, tensors, *, threads: int, stream) -> None:
 
 def count_launch(lay: CallLayout, run: Launch) -> None:
     """Add one launch of ``run`` to the counters (:mod:`repro_torch.obs`):
-    ``k1.launch``, the outputs it seats, the row steps its blocks walk and
-    own, its blocks and the blocks its waves hold."""
+    ``k1.launch``, ``k1.folded`` where it folds an accumulator on the
+    device, the outputs it seats, the row steps its blocks walk and own,
+    its blocks and the blocks its waves hold."""
     obs.count("k1.launch")
+    if lay.acc_outs:
+        obs.count("k1.folded")
     if lay.seated_outs:
         obs.count("k1.seated", len(lay.seated_outs))
     obs.count("k1.rows_walked", run.rows_walked)

@@ -65,8 +65,8 @@ ODD_DIM = {"i": 37, "j": 9, "k": 4, "l": 3}
 #: (k = 4, l = 3: the plane stencils keep an interior of 2 planes)
 LONG_SUMS = {"j": 512, "i": 37, "k": 4, "l": 3}
 #: The programs with an accumulator.
-ACCUMULATING = ("energy3d", "heat3d_residual_norm", "normalization",
-                "plane_sum", "smooth_norm", "subset_sum")
+ACCUMULATING = ("courant", "energy3d", "heat3d_residual_norm",
+                "normalization", "plane_sum", "smooth_norm", "subset_sum")
 
 #: sha256 (first 16 hex digits) of each golden plan's grid-call sources
 #: in each dtype, concatenated in call order, as the emitter wrote them

@@ -178,10 +178,11 @@ def test_emulated_batch_of_member_tensors_is_the_stacked_batch(
         name, emulator, monkeypatch):
     """``compile_batched`` over each input given as the list of the
     examples' own tensors: the stacked batch's bits, in one launch per
-    grid ``CallPlan``, and nothing stacked, since no program's plan reads
-    an input on the host (each call's table holds the members' addresses;
-    normalization's and smooth_norm's second call's, the slices of the
-    first call's stacked output)."""
+    grid ``CallPlan``, and nothing stacked but a scalar input (hydroc's
+    ``dtdx``), the one kind of input a program's plan reads on the host
+    (each call's table holds the members' addresses; normalization's and
+    smooth_norm's second call's, the slices of the first call's stacked
+    output)."""
     stacked = check_batched(name, torch.float32, emulator, 3, chunk=None)
     members = [single_outputs(name, torch.float32, emulator, b,
                               chunk=None)[0] for b in range(3)]
@@ -194,7 +195,9 @@ def test_emulated_batch_of_member_tensors_is_the_stacked_batch(
     before = k1.launches
     out = bgen.fn({k: [m[k] for m in members] for k in members[0]})
     assert k1.launches - before == grid_calls(name)
-    assert not stacks
+    scalars = {i.name for call in _plan(name).calls for i in call.inputs
+               if i.scalar and i.name in members[0]}
+    assert len(stacks) == len(scalars)
     assert set(out) == set(stacked)
     for k in out:
         assert same_bits(out[k], stacked[k]), k

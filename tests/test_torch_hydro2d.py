@@ -46,7 +46,7 @@ def step(arrays, order="xy", dtype=torch.float64):
 
 
 def test_registered_as_the_ports_own():
-    assert PORT_ONLY == ("hydro2d",)
+    assert PORT_ONLY == ("hydro2d", "courant", "hydroc")
     assert ALL_PROGRAMS["hydro2d"] is hydro2d_program
 
 

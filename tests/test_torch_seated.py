@@ -55,7 +55,7 @@ PADDED = "_emu_padded"
 def test_seatable_reads_the_plan():
     """Every program's ``external`` outputs are seated (cosmo's j 2 -2
     at x_lo -2, hydro1d's whole array, heat3d's border planes, hydro2d's
-    four), no
+    and hydroc's four), no
     other kind is, and an output whose producer runs tiles further ahead
     than the call's grid reaches keeps the re-seat."""
     seen = 0
@@ -70,7 +70,7 @@ def test_seatable_reads_the_plan():
             lay = CallLayout(call, seated=True)
             if not lay.seated_outs:  # nothing to seat: the padded source
                 assert emit_source(call, seated=True) == emit_source(call)
-    assert seen == 16
+    assert seen == 20
     call = _plan("heat3d").calls[0]
     out = call.outputs[0]
     assert (out.outer_lo, out.outer_hi, call.outer_lo) == ((1,), (-1,), (-1,))
